@@ -3,7 +3,9 @@
 The port runs the multigrmpy main path (VCF → graphs → paired graph
 Smith-Waterman scoring → host traceback, counting and float64
 genotyping → VCF) with the scoring fill as a hand-written CUDA kernel for
-Hopper (``ops/csrc/paired_sw.cu``). Host modules that never import jax are
+Hopper (``ops/csrc/paired_sw.cu``), and the per-event path (the
+``paragraph`` CLI, grmpy per event) with the single-graph fill as another
+(``ops/csrc/graph_sw.cu``). Host modules that never import jax are
 imported from ``paragraph_tpu``; every module on the path that would pull
 in jax has its counterpart here, under the same name.
 
@@ -37,3 +39,10 @@ def resolve_device(device):
     elif dev.type != "cpu":
         raise ValueError(f"unsupported device {device!r} (cuda or cpu)")
     return dev
+
+
+def add_stats(total, stats: dict) -> None:
+    """Sum one scorer's stats into `total` (no-op when it is None)."""
+    if total is not None:
+        for k, v in stats.items():
+            total[k] = total.get(k, 0) + v

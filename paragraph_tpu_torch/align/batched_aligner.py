@@ -1,12 +1,13 @@
 """Batched graph aligner: device scoring + host traceback.
 
 Counterpart of ``paragraph_tpu/align/batched_aligner.py``: all reads are
-scored in one paired fill (forward/reverse-complement x forward/reversed
+scored in four orientations (forward/reverse-complement x forward/reversed
 graph), strand and uniqueness are selected vectorised, and only the
 chosen orientation of each kept read goes through the exact native
 traceback. Scores come either precomputed by a cross-event pass or from
-the port's ``PairedGraphSW`` on one pair; there is no fallback engine, so
-a scoring failure raises.
+two ``SingleGraphSW`` scorers, one on the graph (forward and
+reverse-complement reads) and one on its reversal (their reversals);
+there is no fallback engine, so a scoring failure raises.
 """
 from __future__ import annotations
 
@@ -44,7 +45,8 @@ def make_orientation_batches(reads: List[Read]):
 class BatchedGraphAligner:
     def __init__(self, graph: Optional[SequenceGraph] = None,
                  scoring: bool = True, threads: int = 1, device="cuda"):
-        self._scorer = None
+        self._fwd_scorer = None
+        self._rev_scorer = None
         self._fwd_scalar: Optional[GraphSW] = None
         self._fwd_native = None
         self._scoring = scoring
@@ -58,15 +60,20 @@ class BatchedGraphAligner:
 
     def set_graph(self, graph: SequenceGraph):
         if self._scoring:
-            from ..ops.multi_sw import PairedGraphSW
+            from ..ops.pallas_sw import SingleGraphSW
 
-            # one pair (the graph, its reads): the same kernel as the
-            # cross-event pass
-            self._scorer = PairedGraphSW([graph], device=self.device)
+            self._fwd_scorer = SingleGraphSW(graph, device=self.device)
+            self._rev_scorer = SingleGraphSW(graph.reversed(),
+                                             device=self.device)
         self._fwd_scalar = GraphSW(graph)
         # C-speed traceback for kept reads when the native lib builds
         if native_available():
             self._fwd_native = NativeGraphSW(graph)
+
+    def scorers(self):
+        """The self-scoring scorers (none when built with scoring=False)."""
+        return [sc for sc in (self._fwd_scorer, self._rev_scorer)
+                if sc is not None]
 
     def _trace(self, chosen: str):
         """Exact fill+traceback of the chosen orientation: native C++ when
@@ -94,7 +101,8 @@ class BatchedGraphAligner:
         """
         if not reads:
             return
-        fwd_bases, rev_bases, _, _ = make_orientation_batches(reads)
+        fwd_bases, rev_bases, fwd_batch, rev_batch = \
+            make_orientation_batches(reads)
         n = len(reads)
 
         f_ends = None  # (end_node, end_ref, end_read) vs the fwd graph
@@ -107,14 +115,17 @@ class BatchedGraphAligner:
                 f_score, f_multi, r_multi = precomputed[:3]
             self.engine = "precomputed"
         else:
-            if self._scorer is None:
+            if self._fwd_scorer is None:
                 raise ValueError(
                     "aligner built with scoring=False got no scores")
-            [(f_out, r_out)] = self._scorer.score_pairs([fwd_bases])
-            f_score, f_en, f_er, f_erd, f_multi = f_out
-            r_multi = r_out[4]
+            # both launches are queued before either output is fetched
+            hf = self._fwd_scorer.score_device(fwd_batch)
+            hr = self._rev_scorer.score_device(rev_batch)
+            f_score, f_en, f_er, f_erd, f_multi = \
+                self._fwd_scorer.finalize(hf)
+            r_multi = self._rev_scorer.finalize(hr)[4]
             f_ends = (f_en, f_er, f_erd)
-            self.engine = ("cuda" if self._scorer.device.type == "cuda"
+            self.engine = ("cuda" if self._fwd_scorer.device.type == "cuda"
                            else "torch")
 
         # vectorized strand choice (GraphAligner.cpp:340-356): unique

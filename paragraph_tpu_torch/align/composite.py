@@ -29,16 +29,18 @@ def align_reads(graph: SequenceGraph, paths, reads: List[Read],
                 precomputed_scores=None,
                 stats_out: Optional[dict] = None,
                 trace_uniq_only: bool = False,
-                device="cuda") -> List[Read]:
+                device="cuda",
+                kernel_stats: Optional[dict] = None) -> List[Read]:
     """grm::alignReads (Align.cpp:114-156): align every read and keep only
     those that end MAPPED. Returns the filtered read buffer.
 
-    engine="batched" scores all reads in one paired fill on `device` and
-    runs the exact traceback on the host; engine="scalar" runs the
-    per-read scalar cascade. `precomputed_scores` injects (f_score,
-    f_multi, r_multi[, f_end_node, f_end_ref, f_end_read]) from a
-    cross-event scoring pass. `trace_uniq_only` skips traceback for
-    non-unique reads.
+    engine="batched" scores all reads in one single-graph fill per graph
+    orientation on `device` and runs the exact traceback on the host;
+    engine="scalar" runs the per-read scalar cascade. `precomputed_scores`
+    injects (f_score, f_multi, r_multi[, f_end_node, f_end_ref,
+    f_end_read]) from a cross-event scoring pass. `trace_uniq_only` skips
+    traceback for non-unique reads. The scorers' stats are added into
+    `kernel_stats` when given.
     """
     if engine == "batched" and graph_matching and not (
             validate_alignments or klib_matching or kmer_matching):
@@ -46,7 +48,8 @@ def align_reads(graph: SequenceGraph, paths, reads: List[Read],
                                     path_matching, precomputed_scores,
                                     threads=threads, stats_out=stats_out,
                                     trace_uniq_only=trace_uniq_only,
-                                    device=device)
+                                    device=device,
+                                    kernel_stats=kernel_stats)
     aligner = CompositeAligner(path_matching, graph_matching,
                                klib_matching, kmer_matching)
     if validate_alignments:
@@ -81,7 +84,9 @@ def _align_reads_batched(graph: SequenceGraph, paths, reads: List[Read],
                          threads: int = 1,
                          stats_out: Optional[dict] = None,
                          trace_uniq_only: bool = False,
-                         device="cuda") -> List[Read]:
+                         device="cuda",
+                         kernel_stats: Optional[dict] = None) -> List[Read]:
+    from .. import add_stats
     from .batched_aligner import BatchedGraphAligner
 
     path_aligner = None
@@ -111,6 +116,8 @@ def _align_reads_batched(graph: SequenceGraph, paths, reads: List[Read],
                               trace_uniq_only=trace_uniq_only)
     if stats_out is not None:
         stats_out["engine"] = batched.engine
+    for scorer in batched.scorers():
+        add_stats(kernel_stats, scorer.stats)
     n_filtered = 0
     for read in stage2:
         read.graph_mapping_status = MAPPED

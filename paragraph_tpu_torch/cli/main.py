@@ -1,4 +1,5 @@
-"""Command-line tools of the PyTorch / CUDA port: multigrmpy and grmpy.
+"""Command-line tools of the PyTorch / CUDA port: multigrmpy, grmpy and
+paragraph.
 
 The options are those of ``python -m paragraph_tpu.cli.main`` plus
 ``--device {cuda,cpu}`` (default cuda). Invoke as
@@ -147,9 +148,73 @@ def cmd_grmpy(argv):
     return 0
 
 
+def cmd_paragraph(argv):
+    """paragraph binary equivalent (BAM + graph → alignment/counts JSON),
+    scoring each graph orientation's reads in one single-graph fill on
+    --device."""
+    from paragraph_tpu.io.cram import open_alignment_reader as BamReader
+    from paragraph_tpu.reads.extraction import extract_reads
+
+    from .. import resolve_device
+    from ..pipeline.paragraph import Parameters, align_and_disambiguate
+
+    p = argparse.ArgumentParser("paragraph")
+    p.add_argument("-b", "--bam", required=True)
+    p.add_argument("-g", "--graph-spec", required=True)
+    p.add_argument("-r", "--reference", required=True)
+    p.add_argument("-o", "--output", default="-")
+    p.add_argument("-t", "--target-regions", default="")
+    p.add_argument("-M", "--max-reads", type=int, default=10000)
+    p.add_argument("--variant-min-reads", type=int, default=3)
+    p.add_argument("--variant-min-frac", type=float, default=0.01)
+    p.add_argument("--bad-align-frac", type=float, default=0.8)
+    p.add_argument("--path-sequence-matching", action="store_true")
+    p.add_argument("--graph-sequence-matching", default=True)
+    p.add_argument("--validate", action="store_true",
+                   help="validate alignments against truth paths encoded "
+                        "in simulated read names (see docs/validation-"
+                        "with-simulated-reads.md); runs the per-read "
+                        "cascade on the host")
+    p.add_argument("--validate-schemas", action="store_true",
+                   help="JSON-Schema validation of the input graph and "
+                        "the output JSON (paragraph_tpu/schema/)")
+    _add_device_arg(p)
+    _add_logging_args(p)
+    args = p.parse_args(argv)
+    _setup_logging(args)
+    device = resolve_device(args.device)
+
+    parameters = Parameters(
+        max_reads=args.max_reads,
+        min_reads_for_variant=args.variant_min_reads,
+        min_frac_for_variant=args.variant_min_frac,
+        bad_align_frac=args.bad_align_frac,
+        path_sequence_matching=args.path_sequence_matching,
+        validate_alignments=args.validate,
+    )
+    parameters.load(_load_json(args.graph_spec), args.reference,
+                    args.target_regions)
+    reader = BamReader(args.bam, "", args.reference)
+    reads = extract_reads(reader, parameters.target_regions,
+                          parameters.max_reads,
+                          parameters.longest_alt_insertion)
+    if args.validate_schemas:
+        from paragraph_tpu.utils.schema import validate, validate_graph_input
+
+        validate_graph_input(parameters.description)
+    output = align_and_disambiguate(parameters, reads, device=device)
+    output["bam"] = args.bam
+    if args.validate_schemas:
+        validate(output, "output")
+    with _open_out(args.output) as f:
+        json.dump(output, f, sort_keys=True, indent=2)
+    return 0
+
+
 _COMMANDS = {
     "multigrmpy": cmd_multigrmpy,
     "grmpy": cmd_grmpy,
+    "paragraph": cmd_paragraph,
 }
 
 

@@ -1,7 +1,8 @@
 """Build and load the CUDA kernels of ops/csrc/ at first use.
 
-``nvcc`` compiles every ``.cu`` file under ``csrc/`` for ``sm_90a`` into
-one shared library with a plain C interface, loaded with ``ctypes``. The
+``nvcc`` compiles every ``.cu`` file under ``csrc/`` for ``sm_90a``, one
+process per source, all started together, and links the objects into one
+shared library with a plain C interface, loaded with ``ctypes``. The
 library goes to ``paragraph_tpu_torch/_build/<hash>/``, keyed by a hash
 of the sources, so an edit rebuilds and an unchanged tree reuses it.
 A failed build raises with nvcc's output; nothing falls back.
@@ -22,7 +23,7 @@ _CSRC = Path(__file__).resolve().parent / "csrc"
 _BUILD_ROOT = Path(__file__).resolve().parent.parent / "_build"
 _LIB_NAME = "libparagraph_tpu_torch_cuda.so"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+              "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 _lock = threading.Lock()
 _lib = None
@@ -62,20 +63,32 @@ def library_path() -> Path:
 def _compile(out: Path) -> None:
     global build_seconds, build_log
     out.parent.mkdir(parents=True, exist_ok=True)
-    cu = [str(p) for p in _sources() if p.suffix == ".cu"]
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=out.parent)
-    os.close(fd)
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *cu]
+    nvcc = _nvcc()
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(
-            f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n"
-            f"{proc.stdout}{proc.stderr}")
-    os.replace(tmp, out)
+    with tempfile.TemporaryDirectory(dir=out.parent) as tmp_dir:
+        cmds = [[nvcc, *NVCC_FLAGS, "-c", "-o",
+                 os.path.join(tmp_dir, f"{p.stem}.o"), str(p)]
+                for p in _sources() if p.suffix == ".cu"]
+        procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                  stderr=subprocess.STDOUT, text=True)
+                 for cmd in cmds]
+        logs = [proc.communicate()[0] for proc in procs]
+        for cmd, proc, log in zip(cmds, procs, logs):
+            if proc.returncode != 0:
+                raise RuntimeError(
+                    f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n"
+                    f"{log}")
+        tmp_lib = os.path.join(tmp_dir, _LIB_NAME)
+        link = [nvcc, "-shared", "-gencode", "arch=compute_90a,code=sm_90a",
+                "-o", tmp_lib, *(cmd[-2] for cmd in cmds)]
+        proc = subprocess.run(link, capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise RuntimeError(
+                f"nvcc link failed ({proc.returncode}): {' '.join(link)}\n"
+                f"{proc.stdout}{proc.stderr}")
+        os.replace(tmp_lib, out)
     build_seconds = time.perf_counter() - t0
-    build_log = proc.stdout + proc.stderr
+    build_log = "".join(logs) + proc.stdout + proc.stderr
 
 
 def load() -> ctypes.CDLL:
@@ -92,6 +105,10 @@ def load() -> ctypes.CDLL:
         lib.paired_sw_launch.restype = i
         lib.paired_sw_launch.argtypes = (
             [vp] * 9 + [i] + [vp] * 4 + [i] * 14 + [vp])
+        lib.multi_sw_launch.restype = i
+        lib.multi_sw_launch.argtypes = [vp] * 10 + [i] * 13 + [vp]
+        lib.graph_sw_launch.restype = i
+        lib.graph_sw_launch.argtypes = [vp] * 10 + [i] * 11 + [vp]
         lib.paired_sw_error_string.restype = ctypes.c_char_p
         lib.paired_sw_error_string.argtypes = [i]
         _lib = lib
@@ -100,3 +117,26 @@ def load() -> ctypes.CDLL:
 
 def error_string(lib, code: int) -> str:
     return f"{code} ({lib.paired_sw_error_string(code).decode()})"
+
+
+def launch(fn_name: str, dev, scratch_words: int, n_lanes: int, inputs,
+           ints):
+    """Launch one kernel of the library on dev's current stream: the C
+    entry point takes `inputs` (tensors as pointers, ints as they are),
+    an int32 scratch of `scratch_words` and the [4, n_lanes] int32
+    output, then `ints` and the stream. Returns the output; raises if the
+    launch is refused."""
+    import torch
+
+    scratch = torch.empty(scratch_words, dtype=torch.int32, device=dev)
+    out = torch.empty((4, n_lanes), dtype=torch.int32, device=dev)
+    lib = load()
+    args = [x.data_ptr() if isinstance(x, torch.Tensor) else x
+            for x in inputs]
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = getattr(lib, fn_name)(*args, scratch.data_ptr(),
+                                    out.data_ptr(), *ints, stream)
+    if err:
+        raise RuntimeError(f"{fn_name} failed: {error_string(lib, err)}")
+    return out

@@ -8,6 +8,12 @@
 // boundary states, gssw's end-cell tie-break and the multi-node flag.
 // The plain PyTorch version is paired_fill_reference in ops/multi_sw.py.
 //
+// The same body, with the load-time orientation expansion switched off
+// (kExpand = false), replaces the TPU launcher multi_pallas_fill, which
+// runs _make_kernel on read codes already expanded on the host: each lane
+// then reads its own codes, length and striped length. That entry point
+// is multi_sw_launch; its plain version is multi_fill_reference.
+//
 // What bounds it on this card. Each DP cell costs ~15 integer ALU
 // operations (profile select, three max for H', the F recurrence, the E
 // update, the packed end-cell word and its max) and five shared-memory
@@ -67,7 +73,7 @@ struct Params {
   int gap_open, gap_extend, match, mismatch, col_bits, j_bits;
 };
 
-template <typename IdxT>
+template <typename IdxT, bool kExpand>
 __global__ void paired_sw_kernel(const Params p,
                                  const IdxT* __restrict__ col_idx) {
   extern __shared__ int32_t smem[];
@@ -96,13 +102,14 @@ __global__ void paired_sw_kernel(const Params p,
     const int ev = p.tile_event[tile];
     const int c0 = p.tile_col_start[tile];
     const int clen = p.tile_col_len[tile];
-    const int bcol = static_cast<int>(col_idx[lane]);
+    const int bcol = kExpand ? static_cast<int>(col_idx[lane]) : lane;
     const int len = p.base_lens[bcol];
     const int rows = min(p.base_vlens[bcol], M);
-    const bool fl = p.flip[lane] != 0;
-    const bool cp = p.comp[lane] != 0;
+    const bool fl = kExpand && p.flip[lane] != 0;
+    const bool cp = kExpand && p.comp[lane] != 0;
 
-    // orientation expansion at load; zero H/E and this CTA's scratch
+    // orientation expansion at load (kExpand); zero H/E and this CTA's
+    // scratch
     for (int j = 0; j < rows; ++j) {
       const int src = (fl && j < len) ? len - 1 - j : j;
       int x = p.base_codes_t[static_cast<size_t>(src) * p.Bb + bcol];
@@ -186,12 +193,12 @@ __global__ void paired_sw_kernel(const Params p,
   }
 }
 
-template <typename IdxT>
+template <typename IdxT, bool kExpand>
 int launch(const Params& p, const void* col_idx, int lanes_per_block,
            int grid, cudaStream_t stream) {
   const size_t smem = static_cast<size_t>(p.M) * lanes_per_block *
                       (2 * sizeof(int32_t) + sizeof(int8_t));
-  auto kernel = paired_sw_kernel<IdxT>;
+  auto kernel = paired_sw_kernel<IdxT, kExpand>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
@@ -201,32 +208,22 @@ int launch(const Params& p, const void* col_idx, int lanes_per_block,
   return static_cast<int>(cudaGetLastError());
 }
 
-}  // namespace
-
-extern "C" int paired_sw_launch(
-    const void* packed_cols, const void* pred_tables,
-    const void* tile_col_start, const void* tile_col_len,
-    const void* tile_event, const void* base_codes_t, const void* base_lens,
-    const void* base_vlens, const void* col_idx, int col_idx_bytes,
-    const void* flip, const void* comp, void* scratch, void* out, int B,
-    int TB, int N, int P, int M, int Bb, int lanes_per_block, int grid,
-    int gap_open, int gap_extend, int match, int mismatch, int col_bits,
-    int j_bits, void* stream) {
-  if (lanes_per_block <= 0 || TB % lanes_per_block != 0 ||
-      B % lanes_per_block != 0 || grid <= 0) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  Params p;
+void set_common(Params& p, const void* packed_cols, const void* pred_tables,
+                const void* tile_col_start, const void* tile_col_len,
+                const void* tile_event, const void* codes_t, const void* lens,
+                const void* vlens, void* scratch, void* out, int B, int TB,
+                int N, int P, int M, int Bb, int gap_open, int gap_extend,
+                int match, int mismatch, int col_bits, int j_bits) {
   p.packed_cols = static_cast<const int32_t*>(packed_cols);
   p.pred_tables = static_cast<const int32_t*>(pred_tables);
   p.tile_col_start = static_cast<const int32_t*>(tile_col_start);
   p.tile_col_len = static_cast<const int32_t*>(tile_col_len);
   p.tile_event = static_cast<const int32_t*>(tile_event);
-  p.base_codes_t = static_cast<const int8_t*>(base_codes_t);
-  p.base_lens = static_cast<const int32_t*>(base_lens);
-  p.base_vlens = static_cast<const int32_t*>(base_vlens);
-  p.flip = static_cast<const int8_t*>(flip);
-  p.comp = static_cast<const int8_t*>(comp);
+  p.base_codes_t = static_cast<const int8_t*>(codes_t);
+  p.base_lens = static_cast<const int32_t*>(lens);
+  p.base_vlens = static_cast<const int32_t*>(vlens);
+  p.flip = nullptr;
+  p.comp = nullptr;
   p.scratch = static_cast<int32_t*>(scratch);
   p.out = static_cast<int32_t*>(out);
   p.B = B;
@@ -241,14 +238,62 @@ extern "C" int paired_sw_launch(
   p.mismatch = mismatch;
   p.col_bits = col_bits;
   p.j_bits = j_bits;
+}
+
+bool bad_shape(int B, int TB, int lanes_per_block, int grid) {
+  return lanes_per_block <= 0 || TB % lanes_per_block != 0 ||
+         B % lanes_per_block != 0 || grid <= 0;
+}
+
+}  // namespace
+
+extern "C" int paired_sw_launch(
+    const void* packed_cols, const void* pred_tables,
+    const void* tile_col_start, const void* tile_col_len,
+    const void* tile_event, const void* base_codes_t, const void* base_lens,
+    const void* base_vlens, const void* col_idx, int col_idx_bytes,
+    const void* flip, const void* comp, void* scratch, void* out, int B,
+    int TB, int N, int P, int M, int Bb, int lanes_per_block, int grid,
+    int gap_open, int gap_extend, int match, int mismatch, int col_bits,
+    int j_bits, void* stream) {
+  if (bad_shape(B, TB, lanes_per_block, grid)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  Params p;
+  set_common(p, packed_cols, pred_tables, tile_col_start, tile_col_len,
+             tile_event, base_codes_t, base_lens, base_vlens, scratch, out, B,
+             TB, N, P, M, Bb, gap_open, gap_extend, match, mismatch, col_bits,
+             j_bits);
+  p.flip = static_cast<const int8_t*>(flip);
+  p.comp = static_cast<const int8_t*>(comp);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (col_idx_bytes == 2) {
-    return launch<int16_t>(p, col_idx, lanes_per_block, grid, s);
+    return launch<int16_t, true>(p, col_idx, lanes_per_block, grid, s);
   }
   if (col_idx_bytes == 4) {
-    return launch<int32_t>(p, col_idx, lanes_per_block, grid, s);
+    return launch<int32_t, true>(p, col_idx, lanes_per_block, grid, s);
   }
   return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// K2: the same fill on read codes already expanded on the host
+// (read_codes_t [M][B], lens / vlens [B]); no col_idx, flip or complement.
+extern "C" int multi_sw_launch(
+    const void* packed_cols, const void* pred_tables,
+    const void* tile_col_start, const void* tile_col_len,
+    const void* tile_event, const void* read_codes_t, const void* lens,
+    const void* vlens, void* scratch, void* out, int B, int TB, int N, int P,
+    int M, int lanes_per_block, int grid, int gap_open, int gap_extend,
+    int match, int mismatch, int col_bits, int j_bits, void* stream) {
+  if (bad_shape(B, TB, lanes_per_block, grid)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  Params p;
+  set_common(p, packed_cols, pred_tables, tile_col_start, tile_col_len,
+             tile_event, read_codes_t, lens, vlens, scratch, out, B, TB, N, P,
+             M, B, gap_open, gap_extend, match, mismatch, col_bits, j_bits);
+  return launch<int32_t, false>(p, nullptr, lanes_per_block, grid,
+                                static_cast<cudaStream_t>(stream));
 }
 
 extern "C" const char* paired_sw_error_string(int code) {

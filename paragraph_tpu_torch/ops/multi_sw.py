@@ -11,6 +11,10 @@ over the same tensors:
   lanes and looping over event-local column steps. It is the CPU engine
   and the kernel's oracle.
 
+``multi_fill`` / ``multi_fill_reference`` are the same fill on read codes
+already expanded on the host (the JAX package's ``multi_pallas_fill``),
+behind ``MultiGraphSW``.
+
 Each lane is one read orientation scored against one event's column
 range; a tile of TB lanes shares the event. Output per lane, [4, B]
 int32: score, global end column (-1 when the score is 0), end read row
@@ -26,7 +30,8 @@ import numpy as np
 
 from paragraph_tpu.graph.model import SequenceGraph
 
-from .batched_sw import GraphArrays, encode_blob, pack_bits
+from . import _build
+from .batched_sw import GraphArrays, encode_blob, encode_reads, pack_bits
 
 _BIG = 2 ** 30
 #: lanes per tile: the read orientations of one event scored together
@@ -47,20 +52,29 @@ def _bucket(x: int, m: int) -> int:
 
 
 class MultiGraphArrays:
-    """Concatenated host arrays for a batch of graphs."""
+    """Concatenated host arrays for a batch of graphs.
+
+    ``n_max`` / ``p_max`` raise the node and predecessor axes to at least
+    the given sizes (MultiGraphSW gives every chunk the batch's maxima);
+    ``l_to`` and ``e_to`` pad the column stream and the event axis of the
+    predecessor tables (all zero-state) to at least the given lengths.
+    """
 
     def __init__(self, graphs: Sequence[SequenceGraph],
-                 prebuilt: Sequence[GraphArrays] = None):
+                 prebuilt: Sequence[GraphArrays] = None,
+                 n_max: int = 0, p_max: int = 0,
+                 l_to: int = 0, e_to: int = 0):
         arrays = list(prebuilt) if prebuilt is not None else \
             [GraphArrays.build(g) for g in graphs]
         self.per_event = arrays
-        self.n_max = max(a.num_nodes for a in arrays)
-        self.p_max = max(a.pred_table.shape[1] for a in arrays)
+        self.n_max = max(n_max, max(a.num_nodes for a in arrays))
+        self.p_max = max(p_max, max(a.pred_table.shape[1] for a in arrays))
         self.col_len = [len(a.ref_codes) for a in arrays]
         ends = np.cumsum([0] + self.col_len)
         self.col_start = ends[:-1].tolist()
         l_real = int(ends[-1])
-        l_bucket = _bucket(max(1, l_real), 1024)
+        l_bucket = max(_bucket(max(1, l_real), 1024), l_to)
+        e_total = max(len(arrays), e_to)
 
         def cat(parts, dtype, pad_val):
             out = np.full(l_bucket, pad_val, dtype)
@@ -85,7 +99,7 @@ class MultiGraphArrays:
                             | (self.col_node << 3)
                             | (self.is_start << 15)
                             | (self.is_last << 16)).astype(np.int32)
-        pred_tables = np.full((len(arrays), self.n_max, self.p_max),
+        pred_tables = np.full((e_total, self.n_max, self.p_max),
                               self.n_max, np.int32)
         for e, a in enumerate(arrays):
             pt = a.pred_table
@@ -330,59 +344,37 @@ def _pack_split(l_ev: int, m: int, match: int):
     return bits
 
 
-def paired_fill_reference(t: FillTables, gap_open: int = 6,
-                          gap_extend: int = 1, match: int = 1,
-                          mismatch: int = 4):
-    """The paired fill in plain PyTorch ops: [4, B] int32 on t's device.
-
-    State is [M, B] (read row x lane). Step s walks column
-    tile_col_start + s of every lane whose tile has s < tile_col_len, so
-    a call costs max(tile_col_len) steps. Saved boundary states are
-    [N+1, M, B], gathered and scattered per lane by node id; slot N stays
-    zero. F is the closed-form prefix max (exact because gap_open >=
-    gap_extend); E is not clamped at zero, as in the TPU kernel (the
-    outputs are the same either way, since hp = max(diag + prof, 0, E)
-    absorbs any negative E). End tracking keeps the TPU kernel's packed
-    word (score | inverted event-local column | inverted read row), which
-    gives gssw's tie-break: highest score, then the first column where it
-    is strictly attained, then the lowest read row.
-    """
+def _fill_reference(packed_cols, pred_tables, tile_col_start, tile_col_len,
+                    tile_event, codes, lens, vlens, l_ev: int, gap_open: int,
+                    gap_extend: int, match: int, mismatch: int):
+    """The multi-event fill over expanded read codes (int32 [M, B], with
+    lens / vlens [B]): the body of paired_fill_reference and
+    multi_fill_reference."""
     import torch
 
-    dev = t.device
+    dev = codes.device
     i32 = torch.int32
-    n_ev, N, P = t.pred_tables.shape
-    M = t.base_codes_t.shape[0]
-    B = t.col_idx.shape[0]
-    T = t.tile_event.shape[0]
+    n_ev, N, P = pred_tables.shape
+    M, B = codes.shape
+    T = tile_event.shape[0]
     TB = B // T
-    col_bits, j_bits = _pack_split(t.l_ev, M, match)
+    col_bits, j_bits = _pack_split(l_ev, M, match)
     s1 = col_bits + j_bits
     lmask = (1 << col_bits) - 1
     jmask = (1 << j_bits) - 1
 
-    # orientation expansion: gather by col_idx, per-lane row flip and
-    # base complement
-    ci = t.col_idx.long()
-    codes = t.base_codes_t.to(i32)[:, ci]  # [M, B]
-    lens = t.base_lens[0, ci]  # [B]
-    vlens = t.base_vlens[0, ci]
-    jj = torch.arange(M, dtype=i32, device=dev)[:, None]  # [M, 1]
-    flip_idx = torch.where(jj < lens, lens - 1 - jj, jj)
-    flipped = torch.gather(codes, 0, flip_idx.long())
-    x = torch.where(t.flip[0] != 0, flipped, codes)
-    x = torch.where((t.comp[0] != 0) & (x < 4), 3 - x, x)
     # score of each row against reference class 0-3; class 4 (N, pad
     # column) scores 0, as do read codes 4 (N) and 5 (pad)
     prof_all = torch.stack(
-        [torch.where(x == c, match, torch.where(x < 4, -mismatch, 0))
-         for c in range(4)] + [torch.zeros_like(x)]).to(i32)  # [5, M, B]
+        [torch.where(codes == c, match, torch.where(codes < 4, -mismatch, 0))
+         for c in range(4)] + [torch.zeros_like(codes)]).to(i32)  # [5, M, B]
 
+    jj = torch.arange(M, dtype=i32, device=dev)[:, None]  # [M, 1]
     lanes = torch.arange(B, device=dev)
     tile = lanes // TB
-    ev = t.tile_event[tile].long()
-    c0 = t.tile_col_start[tile]
-    clen = t.tile_col_len[tile]
+    ev = tile_event[tile].long()
+    c0 = tile_col_start[tile]
+    clen = tile_col_len[tile]
     stripe = jj < vlens  # [M, B]
     real = jj < lens
     jterm = torch.where(stripe, jmask - jj, -_BIG)
@@ -397,16 +389,16 @@ def paired_fill_reference(t: FillTables, gap_open: int = 6,
     node_max = torch.zeros((N, B), dtype=i32, device=dev)
     nodecol = torch.zeros(B, dtype=i32, device=dev)
     best = torch.zeros(B, dtype=i32, device=dev)
-    L = t.packed_cols.shape[0]
+    L = packed_cols.shape[0]
 
     for step in range(int(clen.max())):
         active = step < clen
-        pc = t.packed_cols[(c0 + step).clamp(max=L - 1).long()]
+        pc = packed_cols[(c0 + step).clamp(max=L - 1).long()]
         ref_c = pc & 7
         nid = ((pc >> 3) & 0xFFF).long()
         starts = torch.nonzero(active & ((pc >> 15) & 1 != 0)).squeeze(1)
         if starts.numel():
-            preds = t.pred_tables[ev[starts], nid[starts]].long()  # [S, P]
+            preds = pred_tables[ev[starts], nid[starts]].long()  # [S, P]
             sh = saved_h[preds[:, 0], :, starts]
             se = saved_e[preds[:, 0], :, starts]
             for p in range(1, P):
@@ -456,42 +448,104 @@ def paired_fill_reference(t: FillTables, gap_open: int = 6,
     ]).to(i32)
 
 
-def _check_tables(t: FillTables) -> None:
+def paired_fill_reference(t: FillTables, gap_open: int = 6,
+                          gap_extend: int = 1, match: int = 1,
+                          mismatch: int = 4):
+    """The paired fill in plain PyTorch ops: [4, B] int32 on t's device.
+
+    The lanes' codes are first expanded into orientation (gather by
+    col_idx, per-lane row flip below the read length, complement of
+    ACGT). State is then [M, B] (read row x lane). Step s walks column
+    tile_col_start + s of every lane whose tile has s < tile_col_len, so
+    a call costs max(tile_col_len) steps. Saved boundary states are
+    [N+1, M, B], gathered and scattered per lane by node id; slot N stays
+    zero. F is the closed-form prefix max (exact because gap_open >=
+    gap_extend); E is not clamped at zero, as in the TPU kernel (the
+    outputs are the same either way, since hp = max(diag + prof, 0, E)
+    absorbs any negative E). End tracking keeps the TPU kernel's packed
+    word (score | inverted event-local column | inverted read row), which
+    gives gssw's tie-break: highest score, then the first column where it
+    is strictly attained, then the lowest read row.
+    """
     import torch
 
-    want = {
-        "packed_cols": (torch.int32, 1), "pred_tables": (torch.int32, 3),
-        "tile_col_start": (torch.int32, 1), "tile_col_len": (torch.int32, 1),
-        "tile_event": (torch.int32, 1), "base_codes_t": (torch.int8, 2),
-        "base_lens": (torch.int32, 2), "base_vlens": (torch.int32, 2),
-        "flip": (torch.int8, 2), "comp": (torch.int8, 2),
-    }
+    i32 = torch.int32
+    M = t.base_codes_t.shape[0]
+    ci = t.col_idx.long()
+    codes = t.base_codes_t.to(i32)[:, ci]  # [M, B]
+    lens = t.base_lens[0, ci]  # [B]
+    vlens = t.base_vlens[0, ci]
+    jj = torch.arange(M, dtype=i32, device=t.device)[:, None]
+    flip_idx = torch.where(jj < lens, lens - 1 - jj, jj)
+    flipped = torch.gather(codes, 0, flip_idx.long())
+    x = torch.where(t.flip[0] != 0, flipped, codes)
+    x = torch.where((t.comp[0] != 0) & (x < 4), 3 - x, x)
+    return _fill_reference(
+        t.packed_cols, t.pred_tables, t.tile_col_start, t.tile_col_len,
+        t.tile_event, x, lens, vlens, t.l_ev, gap_open, gap_extend, match,
+        mismatch)
+
+
+def check_tensors(t, want: dict) -> None:
+    """Raise unless each named tensor of `t` has the wanted (ndim, dtype
+    name) and every tensor of `t` is contiguous on t.device."""
+    import torch
+
     dev = t.device
-    for name, (dtype, ndim) in want.items():
+    for name, (ndim, dtype) in want.items():
         x = getattr(t, name)
-        if x.dtype != dtype or x.dim() != ndim:
+        if x.dtype != getattr(torch, dtype) or x.dim() != ndim:
             raise ValueError(f"{name}: want {dtype} with {ndim} dims, got "
                              f"{x.dtype} {tuple(x.shape)}")
-    for name in list(want) + ["col_idx"]:
-        x = getattr(t, name)
-        if x.device != dev or not x.is_contiguous():
+    for name, x in vars(t).items():
+        if isinstance(x, torch.Tensor) and (
+                x.device != dev or not x.is_contiguous()):
             raise ValueError(f"{name} must be contiguous on {dev}")
-    if t.col_idx.dtype not in (torch.int16, torch.int32) \
-            or t.col_idx.dim() != 1:
-        raise ValueError("col_idx must be int16 or int32 [B]")
-    B = t.col_idx.shape[0]
+
+
+def _check_tiles(t, B: int) -> None:
     T = t.tile_event.shape[0]
-    Bb = t.base_codes_t.shape[1]
     if T == 0 or B % T or t.tile_col_start.shape[0] != T \
             or t.tile_col_len.shape[0] != T:
         raise ValueError(f"{B} lanes do not split into {T} tiles")
     if (B // T) % LANES_PER_BLOCK:
         raise ValueError(f"{B // T} lanes per tile are not a multiple of "
                          f"{LANES_PER_BLOCK}")
+
+
+_TILE_WANT = {
+    "packed_cols": (1, "int32"), "pred_tables": (3, "int32"),
+    "tile_col_start": (1, "int32"), "tile_col_len": (1, "int32"),
+    "tile_event": (1, "int32"),
+}
+
+
+def _check_tables(t: FillTables) -> None:
+    import torch
+
+    check_tensors(t, {**_TILE_WANT, "base_codes_t": (2, "int8"),
+                      "base_lens": (2, "int32"), "base_vlens": (2, "int32"),
+                      "flip": (2, "int8"), "comp": (2, "int8")})
+    if t.col_idx.dtype not in (torch.int16, torch.int32) \
+            or t.col_idx.dim() != 1:
+        raise ValueError("col_idx must be int16 or int32 [B]")
+    B = t.col_idx.shape[0]
+    Bb = t.base_codes_t.shape[1]
+    _check_tiles(t, B)
     if t.base_lens.shape != (1, Bb) or t.base_vlens.shape != (1, Bb):
         raise ValueError("base_lens / base_vlens must be [1, Bb]")
     if t.flip.shape != (1, B) or t.comp.shape != (1, B):
         raise ValueError("flip / comp must be [1, B]")
+
+
+def _tile_grid(N: int, M: int, B: int):
+    """(grid, scratch words) of a multi-event launch: per CTA, saved
+    states [2 (N+1) M] and node maxima [N] per lane, with the grid capped
+    so the scratch stays within SCRATCH_BUDGET."""
+    cta_words = (2 * (N + 1) * M + N) * LANES_PER_BLOCK
+    grid = max(1, min(B // LANES_PER_BLOCK,
+                      SCRATCH_BUDGET // (4 * cta_words)))
+    return grid, grid * cta_words
 
 
 def paired_fill(t: FillTables, gap_open: int = 6, gap_extend: int = 1,
@@ -510,43 +564,103 @@ def paired_fill(t: FillTables, gap_open: int = 6, gap_extend: int = 1,
                                      mismatch)
     if dev.type != "cuda":
         raise ValueError(f"paired_fill runs on cuda or cpu, not {dev}")
-    import torch
-
-    from . import _build
-
     _check_tables(t)
     n_ev, N, P = t.pred_tables.shape
     M, Bb = t.base_codes_t.shape
     B = t.col_idx.shape[0]
     TB = B // t.tile_event.shape[0]
     col_bits, j_bits = _pack_split(t.l_ev, M, match)
-    lpb = LANES_PER_BLOCK
-    cta_words = (2 * (N + 1) * M + N) * lpb
-    grid = max(1, min(B // lpb, SCRATCH_BUDGET // (4 * cta_words)))
-    scratch = torch.empty(grid * cta_words, dtype=torch.int32, device=dev)
-    out = torch.empty((4, B), dtype=torch.int32, device=dev)
-    lib = _build.load()
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.paired_sw_launch(
-            t.packed_cols.data_ptr(), t.pred_tables.data_ptr(),
-            t.tile_col_start.data_ptr(), t.tile_col_len.data_ptr(),
-            t.tile_event.data_ptr(), t.base_codes_t.data_ptr(),
-            t.base_lens.data_ptr(), t.base_vlens.data_ptr(),
-            t.col_idx.data_ptr(), t.col_idx.element_size(),
-            t.flip.data_ptr(), t.comp.data_ptr(),
-            scratch.data_ptr(), out.data_ptr(),
-            B, TB, N, P, M, Bb, lpb, grid,
-            gap_open, gap_extend, match, mismatch, col_bits, j_bits,
-            stream)
-    if err:
-        raise RuntimeError(
-            f"paired_sw launch failed: {_build.error_string(lib, err)}")
+    grid, words = _tile_grid(N, M, B)
+    out = _build.launch(
+        "paired_sw_launch", dev, words, B,
+        [t.packed_cols, t.pred_tables, t.tile_col_start, t.tile_col_len,
+         t.tile_event, t.base_codes_t, t.base_lens, t.base_vlens,
+         t.col_idx, t.col_idx.element_size(), t.flip, t.comp],
+        [B, TB, N, P, M, Bb, LANES_PER_BLOCK, grid, gap_open, gap_extend,
+         match, mismatch, col_bits, j_bits])
     paired_fill.launches += 1
     return out
 
 
 paired_fill.launches = 0
+
+
+@dataclass(frozen=True)
+class MultiFillTables:
+    """The tensors of one multi-event fill on expanded read codes, named
+    as the arguments of the JAX package's ``multi_pallas_fill``.
+
+    packed_cols i32[L]; pred_tables i32[E, N, P] (slot N = zero state);
+    tile_col_start / tile_col_len / tile_event i32[T]; read_codes_t
+    i8[M, B]; lens / vlens i32[1, B], with B = T * TB. ``l_ev`` bounds
+    one event's column count for the packed end-cell word.
+    """
+
+    packed_cols: "torch.Tensor"
+    pred_tables: "torch.Tensor"
+    tile_col_start: "torch.Tensor"
+    tile_col_len: "torch.Tensor"
+    tile_event: "torch.Tensor"
+    read_codes_t: "torch.Tensor"
+    lens: "torch.Tensor"
+    vlens: "torch.Tensor"
+    l_ev: int
+
+    @property
+    def device(self):
+        return self.packed_cols.device
+
+
+def multi_fill_reference(t: MultiFillTables, gap_open: int = 6,
+                         gap_extend: int = 1, match: int = 1,
+                         mismatch: int = 4):
+    """The multi-event fill on expanded codes in plain PyTorch ops:
+    paired_fill_reference without the orientation expansion."""
+    import torch
+
+    return _fill_reference(
+        t.packed_cols, t.pred_tables, t.tile_col_start, t.tile_col_len,
+        t.tile_event, t.read_codes_t.to(torch.int32), t.lens[0], t.vlens[0],
+        t.l_ev, gap_open, gap_extend, match, mismatch)
+
+
+def multi_fill(t: MultiFillTables, gap_open: int = 6, gap_extend: int = 1,
+               match: int = 1, mismatch: int = 4):
+    """The multi-event fill on expanded codes: [4, B] int32 on t's device.
+
+    On CUDA tensors this launches the paired kernel's body with the
+    orientation expansion off (``multi_sw_launch`` in
+    ops/csrc/paired_sw.cu) and raises on anything it cannot take; on CPU
+    tensors it runs multi_fill_reference. ``multi_fill.launches`` counts
+    kernel launches.
+    """
+    dev = t.device
+    if dev.type == "cpu":
+        return multi_fill_reference(t, gap_open, gap_extend, match,
+                                    mismatch)
+    if dev.type != "cuda":
+        raise ValueError(f"multi_fill runs on cuda or cpu, not {dev}")
+    check_tensors(t, {**_TILE_WANT, "read_codes_t": (2, "int8"),
+                      "lens": (2, "int32"), "vlens": (2, "int32")})
+    n_ev, N, P = t.pred_tables.shape
+    M, B = t.read_codes_t.shape
+    _check_tiles(t, B)
+    if t.lens.shape != (1, B) or t.vlens.shape != (1, B):
+        raise ValueError("lens / vlens must be [1, B]")
+    TB = B // t.tile_event.shape[0]
+    col_bits, j_bits = _pack_split(t.l_ev, M, match)
+    grid, words = _tile_grid(N, M, B)
+    out = _build.launch(
+        "multi_sw_launch", dev, words, B,
+        [t.packed_cols, t.pred_tables, t.tile_col_start, t.tile_col_len,
+         t.tile_event, t.read_codes_t, t.lens, t.vlens],
+        [B, TB, N, P, M, LANES_PER_BLOCK, grid, gap_open, gap_extend, match,
+         mismatch, col_bits, j_bits])
+    multi_fill.launches += 1
+    return out
+
+
+multi_fill.launches = 0
 
 
 class PairedGraphSW:
@@ -665,3 +779,107 @@ class PairedGraphSW:
         return {**self.stats,
                 "cells_per_wait_s": self.stats["cells"] / wait
                 if wait > 0 else 0.0}
+
+
+class MultiGraphSW:
+    """Score (graph, reads) pairs for a batch of events, one fill launch
+    per chunk of at most ``col_budget`` columns, on reads expanded on the
+    host (the JAX package's ``MultiGraphSW``, through multi_fill).
+
+    Every chunk's launch is issued before the first fetch, and each
+    chunk's output comes back as one [4, B] copy. Each event's reads take
+    whole tiles of ``tile_batch`` lanes (an event without reads takes one
+    tile of pad reads); the JAX scorer's power-of-two tile bucket, which
+    only added pad tiles, is gone.
+    """
+
+    COL_BUDGET = 12288
+
+    def __init__(self, graphs: Sequence[SequenceGraph],
+                 tile_batch: int = TILE_LANES, device="cuda",
+                 col_budget: int = COL_BUDGET):
+        from .. import resolve_device
+
+        if tile_batch <= 0 or tile_batch % LANES_PER_BLOCK:
+            raise ValueError(f"tile_batch {tile_batch} is not a multiple "
+                             f"of {LANES_PER_BLOCK}")
+        self.device = resolve_device(device)
+        self.tile_batch = tile_batch
+        gas = [GraphArrays.build(g) for g in graphs]
+        n_max = max(a.num_nodes for a in gas)
+        p_max = max(a.pred_table.shape[1] for a in gas)
+        self.chunk_events: List[List[int]] = []
+        cur: List[int] = []
+        cur_cols = 0
+        for i, ga in enumerate(gas):
+            cols = len(ga.ref_codes)
+            if cur and cur_cols + cols > col_budget:
+                self.chunk_events.append(cur)
+                cur, cur_cols = [], 0
+            cur.append(i)
+            cur_cols += cols
+        if cur:
+            self.chunk_events.append(cur)
+        self.chunk_arrays = [
+            MultiGraphArrays(None, prebuilt=[gas[i] for i in idxs],
+                             n_max=n_max, p_max=p_max)
+            for idxs in self.chunk_events]
+        self._chunk_dev = [graph_tensors(a, self.device)
+                           for a in self.chunk_arrays]
+
+    def tables(self, chunk_i: int, reads_per_event, pad_to: int = 0):
+        """(MultiFillTables, per-event (start lane, n)) of one chunk's
+        launch."""
+        a = self.chunk_arrays[chunk_i]
+        tb = self.tile_batch
+        all_reads: List[str] = []
+        tile_event: List[int] = []
+        event_slices = []
+        max_len = 1
+        for ev, reads in enumerate(reads_per_event):
+            n = len(reads)
+            n_pad = _bucket(max(1, n), tb)
+            event_slices.append((len(all_reads), n))
+            all_reads.extend(reads)
+            all_reads.extend(["A"] * (n_pad - n))
+            tile_event.extend([ev] * (n_pad // tb))
+            if n:
+                max_len = max(max_len, max(len(r) for r in reads))
+        codes, lens, vlens = encode_reads(
+            all_reads, max(pad_to, _bucket(max_len, 32)))
+        tile_event = np.asarray(tile_event, np.int32)
+        tables = MultiFillTables(
+            *self._chunk_dev[chunk_i],
+            tile_col_start=_to_device(
+                np.asarray(a.col_start, np.int32)[tile_event], self.device),
+            tile_col_len=_to_device(
+                np.asarray(a.col_len, np.int32)[tile_event], self.device),
+            tile_event=_to_device(tile_event, self.device),
+            read_codes_t=_to_device(codes.T.astype(np.int8), self.device),
+            lens=_to_device(lens[None, :], self.device),
+            vlens=_to_device(vlens[None, :], self.device),
+            l_ev=_bucket(max(a.col_len), 256))
+        return tables, event_slices
+
+    def score(self, reads_per_event: Sequence[List[str]], pad_to: int = 0):
+        """Per event, (score, end_node, end_ref, end_read, multi) numpy
+        arrays over its reads."""
+        pending = []
+        for chunk_i, idxs in enumerate(self.chunk_events):
+            tables, event_slices = self.tables(
+                chunk_i, [reads_per_event[e] for e in idxs], pad_to)
+            pending.append((multi_fill(tables), event_slices))
+        results = [None] * len(reads_per_event)
+        for idxs, a, (out, event_slices) in zip(
+                self.chunk_events, self.chunk_arrays, pending):
+            score, end_col, end_read, multi = out.cpu().numpy()
+            valid = end_col >= 0
+            safe_col = np.where(valid, end_col, 0)
+            end_node = np.where(
+                valid, a.col_node[safe_col], 0).astype(np.int32)
+            end_ref = np.where(
+                valid, a.col_in_node[safe_col], -1).astype(np.int32)
+            chunk_out = (score, end_node, end_ref, end_read, multi)
+            for (start, n), e in zip(event_slices, idxs):
+                results[e] = tuple(x[start:start + n] for x in chunk_out)
+        return results

@@ -29,11 +29,13 @@ def align_and_disambiguate(parameters: Parameters,
                            all_reads: List[Read],
                            graph: Optional[SequenceGraph] = None,
                            precomputed_scores=None,
-                           device="cuda") -> dict:
+                           device="cuda",
+                           kernel_stats: Optional[dict] = None) -> dict:
     """Mutates `all_reads` to the filtered/kept set and returns the output
     JSON dict. `graph`/`precomputed_scores` let the cross-event
     orchestrators reuse construction and device scores; without scores
-    the reads are scored on `device`."""
+    the reads are scored on `device`, and the scorers' stats are added
+    into `kernel_stats` when given."""
     if graph is None:
         graph = SequenceGraph.from_json(
             parameters.description, parameters.reference_path)
@@ -78,7 +80,8 @@ def align_and_disambiguate(parameters: Parameters,
         parameters.kmer_sequence_matching,
         parameters.validate_alignments, parameters.threads,
         precomputed_scores=precomputed_scores, stats_out=align_stats,
-        trace_uniq_only=trace_uniq_only, device=device)
+        trace_uniq_only=trace_uniq_only, device=device,
+        kernel_stats=kernel_stats)
     all_reads[:] = kept
 
     if parameters.output_enabled(HAPLOTYPES):

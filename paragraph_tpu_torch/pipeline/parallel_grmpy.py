@@ -222,7 +222,7 @@ def _run_pipeline(ctx, workers, rounds, graph_descs, reference_path,
                   parameters, report_progress, n_events, device,
                   kernel_stats):
     from ..ops.multi_sw import PairedGraphSW
-    from .grmpy import add_stats
+    from .. import add_stats
 
     stage_t: Dict[str, float] = {}
     extract_futs: Dict[int, object] = {}

@@ -25,6 +25,18 @@ from test_gssw_vs_reference import _random_graph, _read_from_graph
 FIELDS = ("score", "end_node", "end_ref", "end_read", "multi")
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """The test runner's workers share the machine's cores, and torch's
+    intra-op pools spin: two workers with all-core pools starve each other
+    (a plain-fill test that takes 8 s alone took 200 s beside another).
+    One thread per worker while this module runs."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _make_graph(seqs, edges):
     g = SequenceGraph([f"n{i}" for i in range(len(seqs))], seqs)
     for f, t in edges:

@@ -22,6 +22,18 @@ sys.path.insert(0, os.path.join(os.path.dirname(__file__), "tools"))
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """The test runner's workers share the machine's cores, and torch's
+    intra-op pools spin: two workers with all-core pools starve each other
+    (a plain-fill test that takes 8 s alone took 200 s beside another).
+    One thread per worker while this module runs."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _options(wl, out, threads=1):
     from paragraph_tpu.pipeline.multigrmpy import MultigrmpyOptions
 
