@@ -19,7 +19,9 @@ Phases, in order; any failure exits non-zero before the result line:
 4. main path: the port's multigrmpy with device="cuda" on the repo's
    end-to-end workload (tests/tools/make_workload.py: 1000 mixed
    DEL/INS/DUP/INV/DEL+SNP events, 30x, 150 bp pairs, one sample, seed
-   1; generated into smoke_workload/ and reused). Requires paired kernel
+   1; generated into smoke_workload/ by that script's command line in a
+   subprocess, since it uses the JAX package's BGZF reader, and reused;
+   this process reads its truth.json). Requires paired kernel
    launches on that run, zero unexpected misses against the planted
    truth (bench_e2e.check_truth) and the native traceback library.
 5. kernel path == plain path end to end: the first 16 events through
@@ -46,13 +48,29 @@ Phases, in order; any failure exits non-zero before the result line:
    seeded cases, unchunked and chunked (col_budget=64), give identical
    outputs; the multi kernel and its plain fill are timed on the
    largest case's tables.
+10. K4 kernel vs plain: the twelve ablation variants of
+   ops/csrc/kbench_sw.cu (paragraph_tpu_torch/tools/kbench2.py) over
+   phase 3's seeded cases (without many_pairs) as MultiGraphSW lays them
+   out, a case of reads with many indels, and the bench dispatch of
+   tools/kbench.py (8,192 reads, 32,768 lanes, M=160): each variant's
+   kernel == its plain fill, every exact variant == v0 == the multi
+   kernel, every inexact variant differs from v0 on some case. Then the
+   kernel benchmark path (kbench2.time_variants over 4 code buffers) per
+   TPU kernel body, the multi kernel on the same buffers, and v0's plain
+   fill once.
 
 Each kernel's launches are counted on its own path, with the counts set
 to 0 just before it and read just after: the paired kernel on phase 4,
 the single-graph kernel on phase 7, the multi kernel on phase 9's cuda
-runs. The last three lines are the card's name and power limit, then
-{"kernels": [...]}, then {"ok": true, "device": {"platform": "gpu",
-"kind": ..., "count": ...}}.
+runs, the ablation kernel on phase 10's timing of each TPU body's
+variants. The process refuses to import jax and the JAX package. The
+last three lines are the card's name and power limit, then {"kernels":
+[...]} (paired_sw, graph_sw, multi_sw and one kbench_sw entry per TPU
+kernel body of tools/kbench2.py, each with its bound: the larger of the
+int32 operations (DPX fused) the needed cells take on the card's INT32
+lanes at the maximum SM clock and the bytes of its tensors at the memory
+rate), then
+{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 """
 import gzip
 import json
@@ -76,6 +94,28 @@ KERNEL_REPLACES = "paragraph_tpu/ops/multi_sw.py:135"
 GRAPH_SOURCE = "paragraph_tpu_torch/ops/csrc/graph_sw.cu"
 GRAPH_REPLACES = "paragraph_tpu/ops/pallas_sw.py:91"
 MULTI_REPLACES = "paragraph_tpu/ops/multi_sw.py:280"
+KBENCH_SOURCE = "paragraph_tpu_torch/ops/csrc/kbench_sw.cu"
+#: the TPU kernel bodies of tools/kbench2.py and the exact variant of each
+#: that phase 10 reports
+KBENCH_BODIES = {"make_kernel": ("tools/kbench2.py:35", "v0"),
+                 "make_kernel_opt": ("tools/kbench2.py:268", "opt1"),
+                 "make_kernel_opt2": ("tools/kbench2.py:407", "opt2")}
+#: the bench dispatch (tools/kbench.py): reads, read length, code buffers
+KBENCH_READS = 8192
+KBENCH_READ_LEN = 150
+KBENCH_BUFFERS = 4
+#: the bound's model of the fill: the int32 operations one DP cell needs
+#: with Hopper's DPX instructions, each counted as one operation at the
+#: INT32 rate. H = max(diag + prof, E, F, 0) takes two (a max, then
+#: __viaddmax_s32_relu); t = H - gapO one; E' = max(E - gapE, t) and the
+#: next row's F = max(F - gapE, t, 0) one __viaddmax each; the end-cell
+#: word (H << s) + k and its max two; the node max one. The profile is a
+#: table read and the row term k the loop counter, so neither is counted;
+#: neither is the seeding at node starts. Then INT32 lanes per SM, and the
+#: card's memory rate (NVIDIA's data sheet, H100 SXM).
+OPS_PER_CELL = 8
+INT32_LANES_PER_SM = 64
+HBM_BYTES_PER_S = 3.35e12
 
 
 def say(msg: str) -> None:
@@ -168,7 +208,7 @@ def _read_from_graph(rng, seqs, edges, read_len=30, mutate=0.05,
 
 
 def _make_graph(seqs, edges):
-    from paragraph_tpu.graph.model import SequenceGraph
+    from paragraph_tpu_torch.graph.model import SequenceGraph
 
     g = SequenceGraph([f"n{i}" for i in range(len(seqs))], seqs)
     for f, t in edges:
@@ -239,6 +279,56 @@ def _compare(kernel, plain, tables, label, **scoring):
     return int((got.long() - want.long()).abs().max())
 
 
+def sm_clock_hz() -> float:
+    """The card's maximum SM clock (nvidia-smi), in Hz."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True,
+        timeout=60).stdout.strip().splitlines()[0]
+    return float(out.split()[0]) * 1e6
+
+
+def needed_cells(tables) -> int:
+    """DP cells these inputs need: per lane, its tile's (or graph's)
+    columns times its read's rows, min(len, M). The rows from len to the
+    striped length hold pad codes: no output reads their cells."""
+    M = tables.read_codes_t.shape[0] if hasattr(tables, "read_codes_t") \
+        else tables.base_codes_t.shape[0]
+    if hasattr(tables, "col_idx"):  # paired: rows of each lane's base read
+        rows = tables.base_lens[0, tables.col_idx.long()]
+    else:
+        rows = tables.lens[0]
+    rows = rows.clamp(max=M).long()
+    if hasattr(tables, "tile_col_len"):
+        lanes_per_tile = rows.shape[0] // tables.tile_col_len.shape[0]
+        cols = tables.tile_col_len.long().repeat_interleave(lanes_per_tile)
+        return int((cols * rows).sum())
+    return int(rows.sum()) * tables.ref_codes.shape[0]
+
+
+def fill_bound(tables, clock_hz: float):
+    """(ms, "operations" or "bytes"): the least time the card could take
+    for a fill on `tables`, the larger of its int32 operations (the cells
+    these inputs need x OPS_PER_CELL over the SMs' INT32 lanes at the
+    maximum clock) and its bytes (every input tensor read once, the
+    [4, B] int32 output written once, at the memory rate)."""
+    import torch
+
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    ops_ms = (needed_cells(tables) * OPS_PER_CELL
+              / (sms * INT32_LANES_PER_SM * clock_hz) * 1e3)
+    tensors = [x for x in vars(tables).values()
+               if isinstance(x, torch.Tensor)]
+    lanes = tables.read_codes_t.shape[1] if hasattr(tables, "read_codes_t") \
+        else tables.col_idx.shape[0]
+    n_bytes = sum(x.numel() * x.element_size() for x in tensors) \
+        + 4 * 4 * lanes
+    bytes_ms = n_bytes / HBM_BYTES_PER_S * 1e3
+    if ops_ms >= bytes_ms:
+        return ops_ms, "operations"
+    return bytes_ms, "bytes"
+
+
 def phase_kernel_cases(card: str):
     import dataclasses
 
@@ -267,8 +357,8 @@ def phase_kernel_cases(card: str):
 def _first_round_tables(wl: str):
     """FillTables of the first dispatch of the main path's first round,
     built as the pipelined orchestrator builds it."""
-    from paragraph_tpu.genotyping.sample_info import load_manifest
-    from paragraph_tpu.graph.model import SequenceGraph
+    from paragraph_tpu_torch.genotyping.sample_info import load_manifest
+    from paragraph_tpu_torch.graph.model import SequenceGraph
     from paragraph_tpu_torch.ops.multi_sw import (
         TILE_LANES, PairedGraphSW, build_pair_tables, dispatch_tables,
         graph_tensors)
@@ -328,7 +418,7 @@ def phase_full_dispatch(card: str, wl: str):
         f"{int(t['tile_col_len'].max())} cells={cells}: kernel == plain; "
         f"kernel {kernel_ms:.3f} ms ({cells / kernel_ms / 1e6:.2f} "
         f"Gcells/s), plain {plain_ms:.1f} ms [{card}]")
-    return err, kernel_ms, plain_ms
+    return err, kernel_ms, plain_ms, tables
 
 
 # ---------------------------------------------------------------- phase 4
@@ -345,9 +435,10 @@ def _options(wl: str, out: str, vcf: str = "candidates.vcf"):
 
 
 def ensure_workload(wl: str):
-    sys.path.insert(0, os.path.join(ROOT, "tests", "tools"))
-    from make_workload import generate
-
+    """The planted events of the workload in `wl`, generated first if
+    needed. The generator is a test tool of the repo that imports the
+    JAX package's BGZF reader, so it runs in a subprocess of its own and
+    this process only reads the truth.json it writes."""
     truth = os.path.join(wl, "truth.json")
     if os.path.isfile(truth):
         with open(truth) as f:
@@ -356,7 +447,17 @@ def ensure_workload(wl: str):
             say(f"[workload] reusing {wl}")
             return events
     t0 = time.perf_counter()
-    events = generate(wl, n_events=N_EVENTS, depth=DEPTH, seed=SEED)
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join(
+        [ROOT] + [p for p in [env.get("PYTHONPATH")] if p])
+    subprocess.run(
+        [sys.executable, os.path.join(ROOT, "tests", "tools",
+                                      "make_workload.py"), wl,
+         "--events", str(N_EVENTS), "--depth", str(DEPTH), "--seed",
+         str(SEED)], check=True, cwd=ROOT, env=env, timeout=600,
+        stdout=subprocess.DEVNULL)
+    with open(truth) as f:
+        events = json.load(f)
     say(f"[workload] generated {N_EVENTS} events at {DEPTH}x in "
         f"{time.perf_counter() - t0:.1f}s")
     return events
@@ -365,7 +466,7 @@ def ensure_workload(wl: str):
 def phase_main_path(card: str, wl: str, events):
     import torch
 
-    from paragraph_tpu.align.native import native_available
+    from paragraph_tpu_torch.align.native import native_available
     from paragraph_tpu_torch.ops.multi_sw import paired_fill
     from paragraph_tpu_torch.pipeline.multigrmpy import run
 
@@ -506,9 +607,9 @@ def _time_fill(kernel, plain, tables, reps):
 
 
 def phase_graph_kernel(card: str, opts, descs):
-    from paragraph_tpu.align.graph_aligner import reverse_complement
-    from paragraph_tpu.genotyping.sample_info import load_manifest
-    from paragraph_tpu.graph.model import SequenceGraph
+    from paragraph_tpu_torch.align.graph_aligner import reverse_complement
+    from paragraph_tpu_torch.genotyping.sample_info import load_manifest
+    from paragraph_tpu_torch.graph.model import SequenceGraph
     from paragraph_tpu_torch.ops.batched_sw import GraphArrays
     from paragraph_tpu_torch.ops.pallas_sw import (graph_fill,
                                                    graph_fill_reference)
@@ -553,7 +654,7 @@ def phase_graph_kernel(card: str, opts, descs):
     text = blob.decode()
     own = [text[a:b] for a, b in zip(ends, ends[1:])]
     full = (own * (FULL_READS // len(own) + 1))[:FULL_READS]
-    times = {}
+    times, full_tables = {}, None
     for label, fwd in (("full", full), ("event", own)):
         reads = fwd + [reverse_complement(r) for r in fwd]
         tables = _graph_tables(graphs[gi], reads)
@@ -564,11 +665,13 @@ def phase_graph_kernel(card: str, opts, descs):
         M, B = tables.read_codes_t.shape
         N, P = tables.pred_table.shape
         times[label] = (kernel_ms, plain_ms)
+        if label == "full":
+            full_tables = tables
         say(f"[graph] {label} dispatch, event {gi}: L={cols[gi]} N={N} "
             f"P={P} M={M} B={B} lanes: kernel == plain; kernel "
             f"{kernel_ms:.3f} ms ({cols[gi] * B * M / kernel_ms / 1e6:.2f} "
             f"Gcells/s issued), plain {plain_ms:.1f} ms [{card}]")
-    return max_err, times["full"][0], times["full"][1]
+    return max_err, times["full"][0], times["full"][1], full_tables
 
 
 # ---------------------------------------------------------------- phase 7
@@ -577,9 +680,9 @@ def phase_graph_kernel(card: str, opts, descs):
 def phase_per_event(card: str, wl: str, events, opts, descs):
     import copy
 
-    from paragraph_tpu.genotyping.sample_info import load_manifest
-    from paragraph_tpu.pipeline.vcfupdate import (read_grmpy,
-                                                  update_vcf_from_grmpy)
+    from paragraph_tpu_torch.genotyping.sample_info import load_manifest
+    from paragraph_tpu_torch.pipeline.vcfupdate import (
+        read_grmpy, update_vcf_from_grmpy)
     from paragraph_tpu_torch.ops.multi_sw import paired_fill
     from paragraph_tpu_torch.ops.pallas_sw import graph_fill
     from paragraph_tpu_torch.pipeline.grmpy import GrmpyParameters, run_grmpy
@@ -656,8 +759,8 @@ def phase_per_event(card: str, wl: str, events, opts, descs):
 
 
 def phase_paragraph_cli(card: str, wl: str, opts, descs):
-    from paragraph_tpu.genotyping.sample_info import load_manifest
     from paragraph_tpu_torch.cli.main import main as cli_main
+    from paragraph_tpu_torch.genotyping.sample_info import load_manifest
 
     bam = load_manifest(opts.manifest)[0].filename
     for i, d in enumerate(descs):
@@ -729,45 +832,184 @@ def phase_multi_kernel(card: str):
     say(f"[multi] timed case {name}: T={tables.tile_event.shape[0]} B={B} "
         f"M={M}: kernel == plain; kernel {kernel_ms:.3f} ms, plain "
         f"{plain_ms:.1f} ms [{card}]")
-    return err, launches, kernel_ms, plain_ms
+    return err, launches, kernel_ms, plain_ms, tables
+
+
+# --------------------------------------------------------------- phase 10
+
+
+def _kbench_cases():
+    """(name, K2 tables on cuda) for the ablation checks: phase 3's seeded
+    cases (without many_pairs, whose plain fills would take minutes) as
+    MultiGraphSW lays them out, and one case of reads with many indels."""
+    from paragraph_tpu_torch.ops.multi_sw import MultiGraphSW
+
+    cases = [c for c in kernel_cases(seed=20261016) if c[0] != "many_pairs"]
+    rng = random.Random(4)
+    graphs, rpe = [], []
+    for _ in range(6):
+        seqs, edges = _random_graph(rng, 6, 60)
+        graphs.append(_make_graph(seqs, edges))
+        reads = [_read_from_graph(rng, seqs, edges,
+                                  read_len=rng.randint(60, 150),
+                                  mutate=0.03, indel=0.08)
+                 for _ in range(rng.randint(20, 40))]
+        rpe.append([r for r in reads if r])
+    cases.append(("indels", graphs, rpe))
+    out = []
+    for name, graphs, rpe in cases:
+        sw = MultiGraphSW(graphs, device="cuda")
+        for ci, idxs in enumerate(sw.chunk_events):
+            tables, _ = sw.tables(ci, [rpe[e] for e in idxs])
+            out.append((f"{name}[{ci}]", tables))
+    return out
+
+
+def _kbench_check(tables, label, differs):
+    """Every variant's kernel == its plain fill (kbench2.check_variants, so
+    every exact variant == v0's plain fill), every exact variant == the
+    multi kernel; notes which inexact variants differ from v0. Returns the
+    max abs error."""
+    import torch
+
+    from paragraph_tpu_torch.ops.multi_sw import multi_fill
+    from paragraph_tpu_torch.tools import kbench2
+
+    outs = kbench2.check_variants(tables, kbench2.VARIANTS)
+    k2 = multi_fill(tables)
+    v0 = outs["v0"][0]
+    err = 0
+    for v, (got, want) in outs.items():
+        if not torch.equal(got, want):
+            bad = (got != want).any(0).nonzero().flatten()[:8].tolist()
+            raise AssertionError(
+                f"{label} {v}: kernel != plain at lanes {bad}: kernel "
+                f"{got[:, bad].tolist()} plain {want[:, bad].tolist()}")
+        err = max(err, int((got.long() - want.long()).abs().max()))
+        if v in kbench2.EXACT:
+            if not torch.equal(got, k2):
+                raise AssertionError(f"{label} {v}: exact variant != "
+                                     "multi_fill")
+        else:
+            differs[v] = differs.get(v, False) or not torch.equal(got, v0)
+    return err
+
+
+def phase_kbench(card: str, clock_hz: float):
+    """K4: every ablation variant's kernel against its plain fill on the
+    seeded cases, an indel case and the bench dispatch; then the kernel
+    benchmark path (kbench2.time_variants) once per TPU kernel body, with
+    the launch count set to 0 just before and read just after."""
+    import torch
+
+    from paragraph_tpu_torch.tools import kbench, kbench2
+
+    t_start = time.perf_counter()
+    max_err = 0
+    differs = {}
+    for label, tables in _kbench_cases():
+        max_err = max(max_err, _kbench_check(tables, label, differs))
+        M, B = tables.read_codes_t.shape
+        say(f"[kbench] case {label}: B={B} M={M}: 12 variants, kernel == "
+            f"plain, exact variants == v0 == multi_fill")
+    bufs, cells = kbench2.bench_buffers(
+        KBENCH_BUFFERS, KBENCH_READS, KBENCH_READ_LEN, 0,
+        torch.device("cuda"))
+    bench = bufs[0]
+    max_err = max(max_err, _kbench_check(bench, "bench", differs))
+    same = [v for v, d in differs.items() if not d]
+    if same:
+        raise AssertionError(f"inexact variants equal to v0 on every case: "
+                             f"{same}")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    kbench2.kbench_fill_reference(bench, "v0")
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    M, B = bench.read_codes_t.shape
+    bound_ms, bound_by = fill_bound(bench, clock_hz)
+    say(f"[kbench] bench dispatch: T={bench.tile_event.shape[0]} B={B} M={M}"
+        f" cells={cells} (needed {needed_cells(bench)}): kernel == plain for"
+        f" every variant; v0 plain {plain_ms:.1f} ms; bound "
+        f"{bound_ms:.3f} ms ({bound_by}) [{card}]")
+
+    ms, launches = {}, {}
+    for body in KBENCH_BODIES:
+        variants = [v for v in kbench2.VARIANTS
+                    if kbench2.tpu_body(v) == body]
+        kbench2.kbench_fill.launches = 0
+        ms.update(kbench2.time_variants(bufs, variants))
+        launches[body] = kbench2.kbench_fill.launches
+        if launches[body] <= 0:
+            raise AssertionError(f"kbench path launched no {body} variant")
+    for v, t in ms.items():
+        say(f"[kbench] {v} ({kbench2.tpu_body(v)}): {t:.3f} ms per dispatch,"
+            f" {cells / t / 1e6:.2f} Gcells/s issued [{card}]")
+    # the multi kernel (K2) on the same buffers, the rung the ladder ends at
+    from paragraph_tpu_torch.ops.multi_sw import multi_fill
+
+    multi_fill(bench)
+    k2_ms = min(kbench.time_ms(lambda: [multi_fill(b) for b in bufs], 1,
+                               bench.device) for _ in range(3)) / len(bufs)
+    say(f"[kbench] multi_sw (K2) on the bench buffers: {k2_ms:.3f} ms per "
+        f"dispatch, {cells / k2_ms / 1e6:.2f} Gcells/s issued [{card}]")
+    say(f"[kbench] phase 10 took {time.perf_counter() - t_start:.1f}s")
+    return [{"name": f"kbench_sw:{body}", "route": "cuda",
+             "source": KBENCH_SOURCE, "replaces": replaces,
+             "launches": launches[body], "max_abs_err": max_err,
+             "ms": ms[variant], "plain_ms": plain_ms, "bound_ms": bound_ms,
+             "bound_by": bound_by, "library_ms": None}
+            for body, (replaces, variant) in KBENCH_BODIES.items()]
 
 
 def main() -> int:
     import logging
 
-    # the port imports no jax, directly or through the host modules it
-    # reuses from paragraph_tpu: any such import now fails the run
+    # the port imports neither jax nor the JAX package: any such import
+    # now fails the run
     sys.modules["jax"] = None
+    sys.modules["paragraph_tpu"] = None
     logging.basicConfig(
         level=logging.INFO, stream=sys.stderr,
         format="[%(asctime)s] [%(name)s] [%(levelname)s] %(message)s")
     card = phase_device()
     phase_build()
+    clock_hz = sm_clock_hz()
+    say(f"[device] max SM clock {clock_hz / 1e6:.0f} MHz")
     err = phase_kernel_cases(card)
     events = ensure_workload(WORKLOAD)
-    err_full, kernel_ms, plain_ms = phase_full_dispatch(card, WORKLOAD)
+    err_full, kernel_ms, plain_ms, k1_tables = phase_full_dispatch(
+        card, WORKLOAD)
     launches = phase_main_path(card, WORKLOAD, events)
     phase_cuda_equals_cpu(card, WORKLOAD, events)
     opts, descs = _first_events_graphs(WORKLOAD, events, PER_EVENT_EVENTS)
-    g_err, g_ms, g_plain_ms = phase_graph_kernel(card, opts, descs)
+    g_err, g_ms, g_plain_ms, k3_tables = phase_graph_kernel(card, opts,
+                                                            descs)
     g_launches = phase_per_event(card, WORKLOAD, events, opts, descs)
     phase_paragraph_cli(card, WORKLOAD, opts, descs[:CLI_EVENTS])
-    m_err, m_launches, m_ms, m_plain_ms = phase_multi_kernel(card)
+    m_err, m_launches, m_ms, m_plain_ms, k2_tables = phase_multi_kernel(card)
+    k4 = phase_kbench(card, clock_hz)
 
     import torch
+
+    def bound(tables):
+        ms, by = fill_bound(tables, clock_hz)
+        return {"bound_ms": ms, "bound_by": by, "library_ms": None}
 
     say(card)
     say(json.dumps({"kernels": [
         {"name": "paired_sw", "route": "cuda", "source": KERNEL_SOURCE,
          "replaces": KERNEL_REPLACES, "launches": launches,
          "max_abs_err": max(err, err_full), "ms": kernel_ms,
-         "plain_ms": plain_ms},
+         "plain_ms": plain_ms, **bound(k1_tables)},
         {"name": "graph_sw", "route": "cuda", "source": GRAPH_SOURCE,
          "replaces": GRAPH_REPLACES, "launches": g_launches,
-         "max_abs_err": g_err, "ms": g_ms, "plain_ms": g_plain_ms},
+         "max_abs_err": g_err, "ms": g_ms, "plain_ms": g_plain_ms,
+         **bound(k3_tables)},
         {"name": "multi_sw", "route": "cuda", "source": KERNEL_SOURCE,
          "replaces": MULTI_REPLACES, "launches": m_launches,
-         "max_abs_err": m_err, "ms": m_ms, "plain_ms": m_plain_ms}]}))
+         "max_abs_err": m_err, "ms": m_ms, "plain_ms": m_plain_ms,
+         **bound(k2_tables)}, *k4]}))
     say(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

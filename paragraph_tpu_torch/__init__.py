@@ -5,9 +5,15 @@ Smith-Waterman scoring → host traceback, counting and float64
 genotyping → VCF) with the scoring fill as a hand-written CUDA kernel for
 Hopper (``ops/csrc/paired_sw.cu``), and the per-event path (the
 ``paragraph`` CLI, grmpy per event) with the single-graph fill as another
-(``ops/csrc/graph_sw.cu``). Host modules that never import jax are
-imported from ``paragraph_tpu``; every module on the path that would pull
-in jax has its counterpart here, under the same name.
+(``ops/csrc/graph_sw.cu``). The kernel benchmark tools
+(``tools/kbench.py``, ``tools/kbench2.py``) time the paired kernel and
+the ablation ladder of its column loop (``ops/csrc/kbench_sw.cu``).
+
+The port imports nothing of ``paragraph_tpu``. Every host module it uses
+(graph, io, reads, the host aligners, the float64 genotyping engines,
+vcfupdate, schemas) is a copy at the same relative path here, and every
+module whose JAX counterpart would pull in jax is rewritten here under
+the same name.
 
 The device is chosen by the caller (``device="cuda"`` or ``"cpu"``) and
 is never switched behind the caller's back: on ``cuda`` a build, launch or

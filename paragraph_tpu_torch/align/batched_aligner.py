@@ -16,11 +16,11 @@ from typing import List, Optional
 
 import numpy as np
 
-from paragraph_tpu.align.graph_aligner import reverse_complement
-from paragraph_tpu.align.gssw import GraphSW
-from paragraph_tpu.align.native import NativeGraphSW, native_available
-from paragraph_tpu.graph.model import SequenceGraph
-from paragraph_tpu.reads.read import Read
+from ..graph.model import SequenceGraph
+from ..reads.read import Read
+from .graph_aligner import reverse_complement
+from .gssw import GraphSW
+from .native import NativeGraphSW, native_available
 
 
 def resolve_threads(threads: int) -> int:

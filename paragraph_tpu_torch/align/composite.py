@@ -1,22 +1,104 @@
-"""Aligner cascade entry point: exact path match → graph SW.
+"""Aligner cascade: exact path match → kmer → klib → graph SW.
 
-Counterpart of ``align_reads`` / ``_align_reads_batched`` in
-``paragraph_tpu/align/composite.py``. The batched graph stage scores on
-the caller's device through the port's ``BatchedGraphAligner``; the
-non-batched cascade (kmer / klib / validation) is the JAX package's own
-``CompositeAligner``, which never touches a device.
+Counterpart of ``paragraph_tpu/align/composite.py`` (grm::
+CompositeAligner, CompositeAligner.cpp). The batched graph stage scores
+on the caller's device through the port's ``BatchedGraphAligner``; the
+non-batched cascade (kmer / klib / validation), ``CompositeAligner``, is
+copied unchanged and never touches a device.
 """
 from __future__ import annotations
 
 import logging
-from typing import List, Optional
+from typing import Callable, List, Optional
 
-from paragraph_tpu.align.composite import CompositeAligner, ReadFilter
-from paragraph_tpu.align.path_aligner import PathAligner
-from paragraph_tpu.graph.model import SequenceGraph
-from paragraph_tpu.reads.read import BAD_ALIGN, MAPPED, UNMAPPED, Read
+from ..graph.model import SequenceGraph
+from ..reads.read import BAD_ALIGN, MAPPED, UNMAPPED, Read
+from .graph_aligner import GraphAligner
+from .path_aligner import PathAligner
 
 log = logging.getLogger("paragraph")
+
+ReadFilter = Callable[[Read], bool]
+
+
+class CompositeAligner:
+    def __init__(self, path_matching: bool, graph_matching: bool,
+                 klib_matching: bool = False, kmer_matching: bool = False):
+        self.path_matching = path_matching
+        self.graph_matching = graph_matching
+        self.klib_matching = klib_matching
+        self.kmer_matching = kmer_matching
+        self.path_aligner: Optional[PathAligner] = None
+        self.graph_aligner: Optional[GraphAligner] = None
+        # counters (CompositeAligner.hh)
+        self.attempted = 0
+        self.mapped_path = 0
+        self.anchored_path = 0
+        self.mapped_kmers = 0
+        self.mapped_klib = 0
+        self.mapped_sw = 0
+        self.filtered = 0
+
+    def set_graph(self, graph: SequenceGraph, paths=None):
+        if self.path_matching:
+            self.path_aligner = PathAligner()
+            self.path_aligner.set_graph(graph)
+        if self.graph_matching:
+            self.graph_aligner = GraphAligner(graph)
+        if self.kmer_matching:
+            from .kmer_aligner import KmerAligner
+
+            self.kmer_aligner = KmerAligner()
+            self.kmer_aligner.set_graph(graph, paths)
+        if self.klib_matching:
+            from .klib_aligner import KlibAligner
+
+            self.klib_aligner = KlibAligner()
+            self.klib_aligner.set_graph(graph, paths)
+
+    def align_read(self, read: Read, filt: Optional[ReadFilter] = None):
+        """CompositeAligner::alignRead (CompositeAligner.cpp:78-176)."""
+        self.attempted += 1
+        if self.path_matching:
+            self.path_aligner.align_read(read)
+            if read.graph_mapping_status == MAPPED:
+                self.mapped_path += 1
+            self.anchored_path = self.path_aligner.anchored
+
+        if read.graph_mapping_status == MAPPED and filt and filt(read):
+            read.graph_mapping_status = BAD_ALIGN
+            if not (self.kmer_matching or self.klib_matching
+                    or self.graph_matching):
+                self.filtered += 1
+
+        if read.graph_mapping_status != MAPPED and self.kmer_matching:
+            self.kmer_aligner.align_read(read)
+            if read.graph_mapping_status == MAPPED:
+                if filt and filt(read):
+                    read.graph_mapping_status = BAD_ALIGN
+                    if not (self.klib_matching or self.graph_matching):
+                        self.filtered += 1
+                else:
+                    self.mapped_kmers += 1
+
+        if read.graph_mapping_status != MAPPED and self.klib_matching:
+            self.klib_aligner.align_read(read)
+            if read.graph_mapping_status == MAPPED:
+                if filt and filt(read):
+                    read.graph_mapping_status = BAD_ALIGN
+                    if not self.graph_matching:
+                        self.filtered += 1
+                else:
+                    self.mapped_klib += 1
+
+        if read.graph_mapping_status != MAPPED and self.graph_matching:
+            self.graph_aligner.align_read(read)
+            read.graph_mapping_status = MAPPED
+            if filt and filt(read):
+                read.graph_mapping_status = BAD_ALIGN
+                self.filtered += 1
+            else:
+                self.mapped_sw += 1
 
 
 def align_reads(graph: SequenceGraph, paths, reads: List[Read],
@@ -53,7 +135,7 @@ def align_reads(graph: SequenceGraph, paths, reads: List[Read],
     aligner = CompositeAligner(path_matching, graph_matching,
                                klib_matching, kmer_matching)
     if validate_alignments:
-        from paragraph_tpu.align.validation import ValidationAligner
+        from .validation import ValidationAligner
 
         aligner = ValidationAligner(aligner, graph, paths)
     aligner.set_graph(graph, paths)

@@ -9,11 +9,59 @@ the ``paragraph-tpu-torch`` console script.
 from __future__ import annotations
 
 import argparse
+import gzip
 import json
 import sys
 
-from paragraph_tpu.cli.main import (_add_logging_args, _expand_response_files,
-                                    _load_json, _open_out, _setup_logging)
+
+def _open_out(path):
+    if path in ("-", "", None):
+        return sys.stdout
+    if path.endswith(".gz"):
+        return gzip.open(path, "wt")
+    return open(path, "w")
+
+
+def _load_json(path):
+    opener = gzip.open if path.endswith(".gz") else open
+    with opener(path, "rt") as f:
+        return json.load(f)
+
+
+def _add_logging_args(p):
+    """Shared logging options (common::Options base, Program.cpp:54-61)."""
+    p.add_argument("--log-level", default="info",
+                   choices=["trace", "debug", "info", "warning", "error"])
+    p.add_argument("--log-file", default="")
+    p.add_argument("--log-async", default="yes",
+                   help="accepted for compatibility; no-op")
+
+
+def _setup_logging(args):
+    import logging
+
+    level = {"trace": logging.DEBUG, "debug": logging.DEBUG,
+             "info": logging.INFO, "warning": logging.WARNING,
+             "error": logging.ERROR}[args.log_level]
+    handlers = None
+    if args.log_file:
+        handlers = [logging.FileHandler(args.log_file)]
+    logging.basicConfig(
+        level=level, handlers=handlers,
+        format="[%(asctime)s] [%(name)s] [%(levelname)s] %(message)s")
+
+
+def _expand_response_files(argv):
+    """--response-file=FILE support (common::Options, Program.cpp:73-106):
+    arguments are read whitespace-separated from the file."""
+    out = []
+    for arg in argv:
+        if arg.startswith("--response-file="):
+            with open(arg.split("=", 1)[1]) as f:
+                out.extend(f.read().split())
+        else:
+            out.append(arg)
+    return out
 
 
 def _add_device_arg(p):
@@ -52,7 +100,7 @@ def cmd_multigrmpy(argv):
     p.add_argument("--bad-align-uniq-kmer-len", type=int, default=0)
     p.add_argument("--validate-schemas", action="store_true",
                    help="JSON-Schema validation of event graphs and "
-                        "genotyping records (paragraph_tpu/schema/)")
+                        "genotyping records (paragraph_tpu_torch/schema/)")
     p.add_argument("--genotyping-engine", default="auto",
                    choices=["auto", "host", "device"],
                    help="auto (default): host, or device for >=4 samples "
@@ -99,8 +147,7 @@ def cmd_multigrmpy(argv):
 
 def cmd_grmpy(argv):
     """grmpy equivalent (graphs + manifest → genotypes.json)."""
-    from paragraph_tpu.genotyping.sample_info import load_manifest
-
+    from ..genotyping.sample_info import load_manifest
     from ..pipeline.grmpy import GrmpyParameters, run_grmpy
 
     p = argparse.ArgumentParser("grmpy")
@@ -152,11 +199,10 @@ def cmd_paragraph(argv):
     """paragraph binary equivalent (BAM + graph → alignment/counts JSON),
     scoring each graph orientation's reads in one single-graph fill on
     --device."""
-    from paragraph_tpu.io.cram import open_alignment_reader as BamReader
-    from paragraph_tpu.reads.extraction import extract_reads
-
     from .. import resolve_device
+    from ..io.cram import open_alignment_reader as BamReader
     from ..pipeline.paragraph import Parameters, align_and_disambiguate
+    from ..reads.extraction import extract_reads
 
     p = argparse.ArgumentParser("paragraph")
     p.add_argument("-b", "--bam", required=True)
@@ -177,7 +223,7 @@ def cmd_paragraph(argv):
                         "cascade on the host")
     p.add_argument("--validate-schemas", action="store_true",
                    help="JSON-Schema validation of the input graph and "
-                        "the output JSON (paragraph_tpu/schema/)")
+                        "the output JSON (paragraph_tpu_torch/schema/)")
     _add_device_arg(p)
     _add_logging_args(p)
     args = p.parse_args(argv)
@@ -199,7 +245,7 @@ def cmd_paragraph(argv):
                           parameters.max_reads,
                           parameters.longest_alt_insertion)
     if args.validate_schemas:
-        from paragraph_tpu.utils.schema import validate, validate_graph_input
+        from ..utils.schema import validate, validate_graph_input
 
         validate_graph_input(parameters.description)
     output = align_and_disambiguate(parameters, reads, device=device)

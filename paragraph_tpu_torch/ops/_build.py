@@ -109,6 +109,8 @@ def load() -> ctypes.CDLL:
         lib.multi_sw_launch.argtypes = [vp] * 10 + [i] * 13 + [vp]
         lib.graph_sw_launch.restype = i
         lib.graph_sw_launch.argtypes = [vp] * 10 + [i] * 11 + [vp]
+        lib.kbench_sw_launch.restype = i
+        lib.kbench_sw_launch.argtypes = [i] + [vp] * 10 + [i] * 13 + [vp]
         lib.paired_sw_error_string.restype = ctypes.c_char_p
         lib.paired_sw_error_string.argtypes = [i]
         _lib = lib

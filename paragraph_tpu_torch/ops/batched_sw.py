@@ -14,7 +14,7 @@ from typing import List, Tuple
 
 import numpy as np
 
-from paragraph_tpu.graph.model import SequenceGraph
+from ..graph.model import SequenceGraph
 
 _NT = np.full(256, 4, dtype=np.int8)
 for _i, _c in enumerate("ACGT"):

@@ -28,7 +28,7 @@ from typing import List, Sequence, Tuple
 
 import numpy as np
 
-from paragraph_tpu.graph.model import SequenceGraph
+from ..graph.model import SequenceGraph
 
 from . import _build
 from .batched_sw import GraphArrays, encode_blob, encode_reads, pack_bits
@@ -346,10 +346,19 @@ def _pack_split(l_ev: int, m: int, match: int):
 
 def _fill_reference(packed_cols, pred_tables, tile_col_start, tile_col_len,
                     tile_event, codes, lens, vlens, l_ev: int, gap_open: int,
-                    gap_extend: int, match: int, mismatch: int):
+                    gap_extend: int, match: int, mismatch: int,
+                    scan: bool = True, track: bool = True,
+                    branches: bool = True):
     """The multi-event fill over expanded read codes (int32 [M, B], with
     lens / vlens [B]): the body of paired_fill_reference and
-    multi_fill_reference."""
+    multi_fill_reference.
+
+    The three switches are the functional knobs of the kernel benchmark's
+    ablation variants (tools/kbench2.py), off only there: ``scan=False``
+    drops the F recurrence (H = H'), ``track=False`` the end-cell tracking
+    (every packed word stays 0), ``branches=False`` the node-start seeding
+    and the node-end saves (H and E run on across node boundaries in
+    column order, every node maximum stays 0)."""
     import torch
 
     dev = codes.device
@@ -397,7 +406,7 @@ def _fill_reference(packed_cols, pred_tables, tile_col_start, tile_col_len,
         ref_c = pc & 7
         nid = ((pc >> 3) & 0xFFF).long()
         starts = torch.nonzero(active & ((pc >> 15) & 1 != 0)).squeeze(1)
-        if starts.numel():
+        if branches and starts.numel():
             preds = pred_tables[ev[starts], nid[starts]].long()  # [S, P]
             sh = saved_h[preds[:, 0], :, starts]
             se = saved_e[preds[:, 0], :, starts]
@@ -411,25 +420,30 @@ def _fill_reference(packed_cols, pred_tables, tile_col_start, tile_col_len,
         prof = prof_all.gather(0, ref_c.long().expand(1, M, B))[0]
         diag = torch.cat([zero_row, h[:-1]], 0)
         hp = torch.maximum(torch.clamp_min(diag + prof, 0), e)
-        g = hp + gterm
-        shift = 1
-        while shift < M:  # inclusive prefix max over rows
-            g = torch.cat([g[:shift], torch.maximum(g[shift:], g[:-shift])])
-            shift *= 2
-        f = torch.cat([zero_row, torch.clamp_min(g[:-1] - fterm, 0)], 0)
-        hn = torch.maximum(hp, f)
+        hn = hp
+        if scan:
+            g = hp + gterm
+            shift = 1
+            while shift < M:  # inclusive prefix max over rows
+                g = torch.cat([g[:shift],
+                               torch.maximum(g[shift:], g[:-shift])])
+                shift *= 2
+            f = torch.cat([zero_row, torch.clamp_min(g[:-1] - fterm, 0)], 0)
+            hn = torch.maximum(hp, f)
         en = torch.maximum(e, hn - (gap_open - gap_extend)) - gap_extend
         h = torch.where(active, hn, h)
         e = torch.where(active, en, e)
 
-        packed = (hn << s1) + (((lmask - step) << j_bits) + jterm)
-        best = torch.where(active, torch.maximum(best, packed.amax(0)), best)
+        if track:
+            packed = (hn << s1) + (((lmask - step) << j_bits) + jterm)
+            best = torch.where(active, torch.maximum(best, packed.amax(0)),
+                               best)
         col_real = torch.where(real, hn, 0).amax(0)
         nodecol = torch.where(active, torch.maximum(nodecol, col_real),
                               nodecol)
 
         lasts = torch.nonzero(active & ((pc >> 16) & 1 != 0)).squeeze(1)
-        if lasts.numel():
+        if branches and lasts.numel():
             nl = nid[lasts]
             saved_h[nl, :, lasts] = hn[:, lasts].T
             saved_e[nl, :, lasts] = en[:, lasts].T
@@ -467,6 +481,18 @@ def paired_fill_reference(t: FillTables, gap_open: int = 6,
     gives gssw's tie-break: highest score, then the first column where it
     is strictly attained, then the lowest read row.
     """
+    x, lens, vlens = expand_orientations(t)
+    return _fill_reference(
+        t.packed_cols, t.pred_tables, t.tile_col_start, t.tile_col_len,
+        t.tile_event, x, lens, vlens, t.l_ev, gap_open, gap_extend, match,
+        mismatch)
+
+
+def expand_orientations(t: FillTables):
+    """Each lane's read codes in its orientation, int32 [M, B], with its
+    lens / vlens [B]: the gather by col_idx, the row flip below the read
+    length and the complement of ACGT that the paired kernel does at
+    load."""
     import torch
 
     i32 = torch.int32
@@ -480,10 +506,7 @@ def paired_fill_reference(t: FillTables, gap_open: int = 6,
     flipped = torch.gather(codes, 0, flip_idx.long())
     x = torch.where(t.flip[0] != 0, flipped, codes)
     x = torch.where((t.comp[0] != 0) & (x < 4), 3 - x, x)
-    return _fill_reference(
-        t.packed_cols, t.pred_tables, t.tile_col_start, t.tile_col_len,
-        t.tile_event, x, lens, vlens, t.l_ev, gap_open, gap_extend, match,
-        mismatch)
+    return x, lens, vlens
 
 
 def check_tensors(t, want: dict) -> None:
@@ -624,6 +647,18 @@ def multi_fill_reference(t: MultiFillTables, gap_open: int = 6,
         t.l_ev, gap_open, gap_extend, match, mismatch)
 
 
+def check_multi_tables(t: MultiFillTables) -> None:
+    """Raise unless `t` holds what the multi-event kernels take: the
+    dtypes and ranks of MultiFillTables, contiguous on one device, lanes
+    that split into tiles of whole CTAs, lens / vlens [1, B]."""
+    check_tensors(t, {**_TILE_WANT, "read_codes_t": (2, "int8"),
+                      "lens": (2, "int32"), "vlens": (2, "int32")})
+    B = t.read_codes_t.shape[1]
+    _check_tiles(t, B)
+    if t.lens.shape != (1, B) or t.vlens.shape != (1, B):
+        raise ValueError("lens / vlens must be [1, B]")
+
+
 def multi_fill(t: MultiFillTables, gap_open: int = 6, gap_extend: int = 1,
                match: int = 1, mismatch: int = 4):
     """The multi-event fill on expanded codes: [4, B] int32 on t's device.
@@ -640,13 +675,9 @@ def multi_fill(t: MultiFillTables, gap_open: int = 6, gap_extend: int = 1,
                                     mismatch)
     if dev.type != "cuda":
         raise ValueError(f"multi_fill runs on cuda or cpu, not {dev}")
-    check_tensors(t, {**_TILE_WANT, "read_codes_t": (2, "int8"),
-                      "lens": (2, "int32"), "vlens": (2, "int32")})
+    check_multi_tables(t)
     n_ev, N, P = t.pred_tables.shape
     M, B = t.read_codes_t.shape
-    _check_tiles(t, B)
-    if t.lens.shape != (1, B) or t.vlens.shape != (1, B):
-        raise ValueError("lens / vlens must be [1, B]")
     TB = B // t.tile_event.shape[0]
     col_bits, j_bits = _pack_split(t.l_ev, M, match)
     grid, words = _tile_grid(N, M, B)

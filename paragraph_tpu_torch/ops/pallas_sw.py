@@ -23,7 +23,7 @@ from typing import List
 
 import numpy as np
 
-from paragraph_tpu.graph.model import SequenceGraph
+from ..graph.model import SequenceGraph
 
 from . import _build
 from .batched_sw import GraphArrays, encode_reads

@@ -3,8 +3,8 @@
 Counterpart of ``align_single_sample``, ``align_samples_batched`` and
 ``run_grmpy`` in ``paragraph_tpu/pipeline/grmpy.py`` (grmpy::Workflow,
 AlignSamples.cpp, CountAndGenotype.cpp). Scoring runs on the caller's
-device through the port; a failure raises. Parameters, read extraction
-and the float64 host genotyping are the JAX package's.
+device through the port; a failure raises. ``GrmpyParameters``, the
+alignment dump and the float64 host genotyping are copied unchanged.
 """
 from __future__ import annotations
 
@@ -14,22 +14,143 @@ import os
 import time
 from typing import Dict, List, Optional
 
-from paragraph_tpu.genotyping.sample_info import SampleInfo
-from paragraph_tpu.graph.model import SequenceGraph
-from paragraph_tpu.io.cram import open_alignment_reader as BamReader
-from paragraph_tpu.pipeline.grmpy import (  # noqa: F401 (re-export)
-    GrmpyParameters, _make_paragraph_parameters, _write_alignments_json,
-    count_and_genotype, make_event_genotyper)
-from paragraph_tpu.reads.extraction import extract_reads
-from paragraph_tpu.reads.read import UNMAPPED
-
 from .. import add_stats, resolve_device
-from .paragraph import align_and_disambiguate
+from ..genotyping.graph_genotyper import GraphBreakpointGenotyper
+from ..genotyping.sample_info import SampleInfo
+from ..graph.model import SequenceGraph
+from ..io.cram import open_alignment_reader as BamReader
+from ..reads.extraction import extract_reads
+from ..reads.read import UNMAPPED
+from .paragraph import (ALL, DETAILED_READ_COUNTS, EDGE_READ_COUNTS,
+                        HAPLOTYPES, NODE_READ_COUNTS, PATH_READ_COUNTS,
+                        Parameters, align_and_disambiguate)
 
 logger = logging.getLogger("grmpy")
 
 _OUTPUT_ONLY_KEYS = ("alignments", "node_coverage", "path_coverage",
                      "phasing", "variants")
+
+
+class GrmpyParameters:
+    """grmpy::Parameters (grmpy/Parameters.hh)."""
+
+    def __init__(self, threads: int = 0, max_reads: int = 10000,
+                 bad_align_frac: float = 0.8,
+                 path_sequence_matching: bool = False,
+                 graph_sequence_matching: bool = True,
+                 klib_sequence_matching: bool = False,
+                 kmer_sequence_matching: bool = False,
+                 bad_align_uniq_kmer_len: int = 0,
+                 alignment_output_folder: str = "",
+                 infer_read_haplotypes: bool = False,
+                 progress: bool = False,
+                 gt_engine: str = "auto"):
+        self.threads = threads
+        self.max_reads = max_reads
+        self.bad_align_frac = bad_align_frac
+        self.path_sequence_matching = path_sequence_matching
+        self.graph_sequence_matching = graph_sequence_matching
+        self.klib_sequence_matching = klib_sequence_matching
+        self.kmer_sequence_matching = kmer_sequence_matching
+        self.bad_align_uniq_kmer_len = bad_align_uniq_kmer_len
+        self.alignment_output_folder = alignment_output_folder
+        self.infer_read_haplotypes = infer_read_haplotypes
+        self.progress = progress
+        #: "host" = float64 parity engines per event;
+        #: "device" = the device population engine, not ported: a run
+        #: that resolves to it raises NotImplementedError
+        self.gt_engine = gt_engine
+
+
+def _write_alignments_json(output, parameters, paragraph_parameters,
+                           reference_path, sample):
+    """grmpy::writeAlignments (AlignSamples.cpp:57-109)."""
+    import gzip
+    import json
+    import re
+
+    out = dict(output)
+    out["sample"] = sample.sample_name
+    out["reference"] = reference_path
+    unsafe = re.compile(r"[^A-Za-z0-9.-]")
+    safe_sample = unsafe.sub("_", sample.sample_name)
+    safe_regions = unsafe.sub(
+        "_", "_".join(str(r) for r in paragraph_parameters.target_regions))
+    graph = paragraph_parameters.description
+    graph_id = graph.get("ID") or graph.get("model_name") or "graph"
+    safe_graph_id = unsafe.sub("_", str(graph_id))
+    path = os.path.join(
+        parameters.alignment_output_folder,
+        f"{safe_sample}-{safe_graph_id}-{safe_regions}.json.gz")
+    with gzip.open(path, "wt") as f:
+        json.dump(out, f, sort_keys=True, indent=4, separators=(",", ": "))
+
+
+def make_event_genotyper(graph_desc: dict, reference_path: str,
+                         genotyping_parameters: Optional[dict],
+                         samples: List[SampleInfo],
+                         graph: Optional[SequenceGraph] = None
+                         ) -> GraphBreakpointGenotyper:
+    """Breakpoint genotyper for one event with all sample alignments
+    added (the counting half of grmpy::countAndGenotype). Callers that
+    already built the event's SequenceGraph (the per-event analysis
+    does, for alignment) pass it to skip a second from_json build."""
+    root = graph_desc if graph_desc is not None else (
+        samples[0].alignment_data)
+    if graph is None:
+        graph = SequenceGraph.from_json(root, reference_path)
+
+    male_ploidy = 2
+    female_ploidy = 2
+    for t_region in root.get("target_regions", []):
+        chrom = str(t_region).split(":")[0]
+        if chrom in ("chrX", "X"):
+            male_ploidy = 1
+        elif chrom in ("chrY", "Y"):
+            male_ploidy = 1
+            female_ploidy = 1
+
+    genotyper = GraphBreakpointGenotyper(graph, male_ploidy, female_ploidy)
+    genotyper.set_parameters(genotyping_parameters)
+    for sample_info in samples:
+        genotyper.add_alignment(sample_info)
+    return genotyper
+
+
+def count_and_genotype(graph_desc: dict, reference_path: str,
+                       genotyping_parameters: Optional[dict],
+                       samples: List[SampleInfo],
+                       graph: Optional[SequenceGraph] = None) -> dict:
+    """grmpy::countAndGenotype (CountAndGenotype.cpp:46-88)."""
+    return make_event_genotyper(graph_desc, reference_path,
+                                genotyping_parameters,
+                                samples, graph=graph).get_genotypes()
+
+
+def _make_paragraph_parameters(parameters: GrmpyParameters,
+                               graph_desc: dict, reference_path: str,
+                               write_alignments: bool) -> Parameters:
+    if write_alignments:
+        output_options = ALL
+    else:
+        output_options = (NODE_READ_COUNTS | EDGE_READ_COUNTS
+                          | PATH_READ_COUNTS | DETAILED_READ_COUNTS)
+    if parameters.infer_read_haplotypes:
+        output_options |= HAPLOTYPES
+    else:
+        output_options &= ~HAPLOTYPES
+    pp = Parameters(
+        parameters.max_reads,
+        3 if write_alignments else parameters.max_reads + 1,
+        0.01, parameters.bad_align_frac, output_options,
+        parameters.path_sequence_matching,
+        parameters.graph_sequence_matching,
+        parameters.klib_sequence_matching,
+        parameters.kmer_sequence_matching, False)
+    pp.threads = parameters.threads
+    pp.kmer_len = parameters.bad_align_uniq_kmer_len
+    pp.load(graph_desc, reference_path)
+    return pp
 
 
 def resolve_gt_engine(parameters: GrmpyParameters, n_samples: int,

@@ -1,28 +1,95 @@
 """Per-graph read alignment and disambiguation.
 
-Counterpart of ``align_and_disambiguate`` in
-``paragraph_tpu/pipeline/paragraph.py`` (paragraph::alignAndDisambiguate,
-Disambiguation.cpp:152-361), scoring through the port's aligner on the
-caller's device. ``Parameters`` and the output flags are the JAX
-package's.
+Counterpart of ``paragraph_tpu/pipeline/paragraph.py``
+(paragraph::alignAndDisambiguate and paragraph::Parameters,
+Disambiguation.cpp:152-361, Parameters.hh/.cpp), scoring through the
+port's aligner on the caller's device. ``Parameters`` and the output
+flags are copied unchanged.
 """
 from __future__ import annotations
 
 from typing import Dict, List, Optional
 
-from paragraph_tpu.graph.coordinates import GraphCoordinates
-from paragraph_tpu.graph.model import SequenceGraph, paths_from_json
-from paragraph_tpu.pipeline.paragraph import (  # noqa: F401 (re-export)
-    ALIGNMENTS, ALL, DETAILED_READ_COUNTS, EDGE_READ_COUNTS,
-    FILTERED_ALIGNMENTS, HAPLOTYPES, NODE_COVERAGE, NODE_READ_COUNTS,
-    PATH_COVERAGE, PATH_READ_COUNTS, VARIANTS, Parameters)
-from paragraph_tpu.reads.counting import count_reads
-from paragraph_tpu.reads.disambig import disambiguate_reads
-from paragraph_tpu.reads.filters import create_read_filter
-from paragraph_tpu.reads.read import BAD_ALIGN, Read
-from paragraph_tpu.reads.stats import summarize_alignments
-
 from ..align.composite import align_reads
+from ..graph.coordinates import GraphCoordinates
+from ..graph.model import SequenceGraph, paths_from_json
+from ..reads.counting import count_reads
+from ..reads.disambig import disambiguate_reads
+from ..reads.filters import create_read_filter
+from ..reads.read import BAD_ALIGN, Read
+from ..reads.stats import summarize_alignments
+from ..utils.numerics import f32
+
+# output_options (Parameters.hh:63-76)
+ALIGNMENTS = 0x01
+FILTERED_ALIGNMENTS = 0x02
+VARIANTS = 0x04
+NODE_READ_COUNTS = 0x08
+EDGE_READ_COUNTS = 0x10
+PATH_READ_COUNTS = 0x20
+DETAILED_READ_COUNTS = 0x40
+PATH_COVERAGE = 0x80
+NODE_COVERAGE = 0x100
+HAPLOTYPES = 0x200
+ALL = 0xFFFFFFFF
+
+
+class Parameters:
+    """paragraph::Parameters (Parameters.hh:44-145)."""
+
+    def __init__(self, max_reads: int = 10000, min_reads_for_variant: int = 1,
+                 min_frac_for_variant: float = 0.0,
+                 bad_align_frac: float = 0.8, output_options: int = ALL,
+                 path_sequence_matching: bool = False,
+                 graph_sequence_matching: bool = True,
+                 klib_sequence_matching: bool = False,
+                 kmer_sequence_matching: bool = False,
+                 validate_alignments: bool = False):
+        self.max_reads = max_reads
+        self.min_reads_for_variant = min_reads_for_variant
+        self.min_frac_for_variant = min_frac_for_variant
+        self.bad_align_frac = f32(bad_align_frac)
+        self.output_options = output_options
+        self.path_sequence_matching = path_sequence_matching
+        self.graph_sequence_matching = graph_sequence_matching
+        self.klib_sequence_matching = klib_sequence_matching
+        self.kmer_sequence_matching = kmer_sequence_matching
+        self.validate_alignments = validate_alignments
+        self.description: dict = {}
+        self.reference_path = ""
+        self.target_regions: List[str] = []
+        self.longest_alt_insertion = 0
+        # 0 = auto (hardware concurrency), like the reference CLIs'
+        # std::thread::hardware_concurrency() default (paragraph.cpp:73)
+        self.threads = 0
+        self.kmer_len = 0
+        self.remove_nonuniq_reads = True
+
+    def output_enabled(self, option: int) -> bool:
+        return (self.output_options & option) != 0
+
+    def load(self, graph_desc: dict, reference_path: str,
+             override_target_regions: str = ""):
+        """Parameters::load (Parameters.cpp:39-88)."""
+        self.reference_path = reference_path
+        root = dict(graph_desc)
+        if "graph" in root:
+            root.update(root["graph"])
+            del root["graph"]
+        self.description = root
+        if override_target_regions:
+            self.target_regions = override_target_regions.split(",")
+        else:
+            if not isinstance(root.get("target_regions"), list):
+                raise ValueError(
+                    'Graph description is missing "target_regions" key.')
+            self.target_regions = [str(r) for r in root["target_regions"]]
+        if "max_reads" in root:
+            self.max_reads = int(root["max_reads"])
+        for node in self.description.get("nodes", []):
+            if ("sequence" in node
+                    and len(node["sequence"]) > self.longest_alt_insertion):
+                self.longest_alt_insertion = len(node["sequence"])
 
 
 def align_and_disambiguate(parameters: Parameters,
@@ -85,7 +152,7 @@ def align_and_disambiguate(parameters: Parameters,
     all_reads[:] = kept
 
     if parameters.output_enabled(HAPLOTYPES):
-        from paragraph_tpu.pipeline.haplotypes import add_haplotype_paths
+        from .haplotypes import add_haplotype_paths
 
         add_haplotype_paths(all_reads, graph,
                             parameters.description.get("paths", []), output)
@@ -106,7 +173,7 @@ def align_and_disambiguate(parameters: Parameters,
 
     if parameters.output_enabled(VARIANTS) or parameters.output_enabled(
             NODE_COVERAGE) or parameters.output_enabled(PATH_COVERAGE):
-        from paragraph_tpu.pipeline.variants import get_variants
+        from .variants import get_variants
 
         get_variants(
             coordinates, all_reads, output,

@@ -26,7 +26,7 @@ from typing import Dict, List, Optional
 
 import numpy as np
 
-from paragraph_tpu.graph.model import SequenceGraph
+from ..graph.model import SequenceGraph
 
 logger = logging.getLogger("grmpy")
 
@@ -38,8 +38,7 @@ def _worker_init():
     _WORKER_STATE["event_reads"] = {}
     # pre-import the analysis stack while the parent is still converting
     # input and extracting round 0
-    from paragraph_tpu.reads.extraction import extract_reads  # noqa: F401
-
+    from ..reads.extraction import extract_reads  # noqa: F401
     from .grmpy import count_and_genotype  # noqa: F401
     from .paragraph import align_and_disambiguate  # noqa: F401
 
@@ -48,7 +47,7 @@ def _get_reader(filename: str, index_filename: str, reference_path: str):
     readers = _WORKER_STATE.setdefault("readers", {})
     reader = readers.get(filename)
     if reader is None:
-        from paragraph_tpu.io.cram import open_alignment_reader
+        from ..io.cram import open_alignment_reader
 
         reader = open_alignment_reader(filename, index_filename,
                                        reference_path)
@@ -60,8 +59,8 @@ def _extract_reads_map(graph_desc: dict, reference_path: str,
                        bam_specs: List[tuple], max_reads: int):
     """{sample_name: [Read, ...]} for one event (the extraction half of
     grmpy::alignSingleSample, AlignSamples.cpp:115-147)."""
-    from paragraph_tpu.pipeline.paragraph import Parameters
-    from paragraph_tpu.reads.extraction import extract_reads
+    from ..reads.extraction import extract_reads
+    from .paragraph import Parameters
 
     pp = Parameters()
     pp.max_reads = max_reads
@@ -105,8 +104,7 @@ def _analyze_event(gi: int, graph_desc: dict, reference_path: str,
     worker restart) re-extracts locally. Returns the event's genotyping
     result dict (CountAndGenotype.cpp).
     """
-    from paragraph_tpu.reads.read import UNMAPPED
-
+    from ..reads.read import UNMAPPED
     from .grmpy import _make_paragraph_parameters, count_and_genotype
     from .paragraph import align_and_disambiguate
 
@@ -159,10 +157,9 @@ def run_grmpy_pipelined(graph_descs: List[dict], reference_path: str,
     """Event-ordered genotyping results for every graph, produced by the
     3-stage pipeline described in the module docstring. The round
     scorers' stats are added into `kernel_stats` when given."""
-    from paragraph_tpu.align.native import native_available
-
     from .. import resolve_device
     from ..align.batched_aligner import resolve_threads
+    from ..align.native import native_available
     from ..ops.multi_sw import PAIR_BUDGET
 
     # initialise the device before the card is hidden from the children

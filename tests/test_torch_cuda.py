@@ -1,6 +1,7 @@
 """The CUDA graph-SW kernels on the card, against their plain versions:
-the paired multi-event fill (K1), the single-graph fill (K3) and the
-multi-event fill on expanded reads (K2).
+the paired multi-event fill (K1), the single-graph fill (K3), the
+multi-event fill on expanded reads (K2) and the ablation variants of its
+column loop (K4).
 
 Every test here needs an NVIDIA card (marker ``cuda``) and skips without
 one. The file imports no jax, so on a machine without it the tests run
@@ -21,7 +22,7 @@ import numpy as np
 import pytest
 import torch
 
-from paragraph_tpu.graph.model import SequenceGraph
+from paragraph_tpu_torch.graph.model import SequenceGraph
 from paragraph_tpu_torch.ops import multi_sw as msw
 from paragraph_tpu_torch.ops import pallas_sw as psw
 from paragraph_tpu_torch.ops.batched_sw import GraphArrays, encode_reads
@@ -240,3 +241,24 @@ def test_new_wrappers_refuse_what_the_kernels_do_not_take(cuda_device):
         with pytest.raises(ValueError):
             msw.multi_fill(t_bad)
     assert msw.multi_fill.launches == before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", sorted(CASES))
+def test_ablation_kernel_matches_plain_fill(name, cuda_device):
+    """Every K4 variant (tools/kbench2.py) against its plain fill on the
+    multi-event tables of a case; the exact ones equal the multi kernel."""
+    from paragraph_tpu_torch.tools import kbench2
+
+    graphs, rpe = _case(**CASES[name])
+    sw = msw.MultiGraphSW(graphs, device=cuda_device)
+    tables, _ = sw.tables(0, [rpe[e] for e in sw.chunk_events[0]])
+    k2 = msw.multi_fill(tables)
+    for variant in kbench2.VARIANTS:
+        before = kbench2.kbench_fill.launches
+        got = kbench2.kbench_fill(tables, variant)
+        assert kbench2.kbench_fill.launches == before + 1
+        assert torch.equal(got, kbench2.kbench_fill_reference(tables,
+                                                              variant))
+        if variant in kbench2.EXACT:
+            assert torch.equal(got, k2), variant

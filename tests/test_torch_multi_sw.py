@@ -15,13 +15,14 @@ import numpy as np
 import pytest
 import torch
 
-from paragraph_tpu.align.graph_aligner import reverse_complement
-from paragraph_tpu.graph.model import SequenceGraph
 from paragraph_tpu.ops import batched_sw as jax_bsw
 from paragraph_tpu.ops import multi_sw as jax_msw
+from paragraph_tpu_torch.align.graph_aligner import reverse_complement
+from paragraph_tpu_torch.graph.model import SequenceGraph
 from paragraph_tpu_torch.ops import multi_sw as msw
 
 from test_gssw_vs_reference import _random_graph, _read_from_graph
+from torch_twins import jax_graphs
 
 FIELDS = ("score", "end_node", "end_ref", "end_read", "multi")
 
@@ -130,7 +131,7 @@ def test_scorer_matches_jax_scorer(name, col_budget):
     if col_budget == 64:
         assert len(sw.chunk_events) > 1
     got = sw.score(rpe)
-    want = jax_msw.MultiGraphSW(graphs, interpret=True,
+    want = jax_msw.MultiGraphSW(jax_graphs(graphs), interpret=True,
                                 col_budget=col_budget).score(rpe)
     _assert_events_equal(got, want)
 
@@ -138,7 +139,7 @@ def test_scorer_matches_jax_scorer(name, col_budget):
 def _host_tables(graphs, rpe, tb=32):
     """JAX builder arrays and expanded codes of one launch, as MultiGraphSW
     lays them out (without the power-of-two tile bucket)."""
-    a = jax_msw.MultiGraphArrays(graphs)
+    a = jax_msw.MultiGraphArrays(jax_graphs(graphs))
     reads, tile_event = [], []
     for ev, rs in enumerate(rpe):
         n_pad = -(max(1, len(rs)) // -tb) * tb
@@ -189,7 +190,7 @@ def test_reference_fill_matches_pallas_kernel(name):
 def test_multi_graph_arrays_keywords_match_jax_builder(kwargs):
     graphs, _ = CASES["multi_808"]
     got = msw.MultiGraphArrays(graphs, **kwargs)
-    want = jax_msw.MultiGraphArrays(graphs, **kwargs)
+    want = jax_msw.MultiGraphArrays(jax_graphs(graphs), **kwargs)
     for attr in ("n_max", "p_max", "col_len", "col_start"):
         assert getattr(got, attr) == getattr(want, attr), attr
     for attr in ("ref_codes", "col_node", "col_in_node", "is_start",

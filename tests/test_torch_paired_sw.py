@@ -16,11 +16,12 @@ import pytest
 import torch
 
 from paragraph_tpu.align.gssw import GraphSW
-from paragraph_tpu.graph.model import SequenceGraph
 from paragraph_tpu.ops import multi_sw as jax_msw
+from paragraph_tpu_torch.graph.model import SequenceGraph
 from paragraph_tpu_torch.ops import multi_sw as msw
 
 from test_gssw_vs_reference import _random_graph, _read_from_graph
+from torch_twins import jax_graph, jax_graphs
 
 FIELDS = ("score", "end_node", "end_ref", "end_read", "multi")
 
@@ -77,7 +78,7 @@ def _jax_tables(graphs, rpp):
     pairs = []
     for g in graphs:
         pairs.extend([g, g.reversed()])
-    a = jax_msw.MultiGraphArrays(pairs)
+    a = jax_msw.MultiGraphArrays(jax_graphs(pairs))
     return a, jax_msw.build_pair_tables(a, rpp, 128)
 
 
@@ -168,7 +169,8 @@ LEGACY = _legacy_cases()
 @pytest.mark.parametrize("name", sorted(LEGACY))
 def test_scorer_matches_jax_scorer(name):
     graphs, rpp = LEGACY[name]
-    want = jax_msw.PairedGraphSW(graphs, interpret=True).score_pairs(rpp)
+    want = jax_msw.PairedGraphSW(jax_graphs(graphs),
+                                 interpret=True).score_pairs(rpp)
     got = msw.PairedGraphSW(graphs, device="cpu").score_pairs(rpp)
     _assert_pairs_equal(got, want)
 
@@ -181,7 +183,7 @@ def test_chunking_keeps_pairs_together():
     one = msw.PairedGraphSW(graphs, device="cpu")
     assert len(one.chunk_pairs) == 1
     _assert_pairs_equal(got, one.score_pairs(rpp))
-    want = jax_msw.PairedGraphSW(graphs, interpret=True,
+    want = jax_msw.PairedGraphSW(jax_graphs(graphs), interpret=True,
                                  col_budget=1).score_pairs(rpp)
     _assert_pairs_equal(got, want)
 
@@ -202,7 +204,7 @@ def test_forward_reads_match_scalar_oracle():
     results = msw.PairedGraphSW(graphs, device="cpu").score_pairs(rpp)
     for g, reads, (f_out, _) in zip(graphs, rpp, results):
         score, end_node, end_ref, end_read, multi = f_out
-        scalar = GraphSW(g)
+        scalar = GraphSW(jax_graph(g))
         for i, read in enumerate(reads):
             fills, max_node, max_score = scalar.fill(read)
             f = fills[max_node]
@@ -221,7 +223,8 @@ def test_zero_score_reads_flag_multi():
     g = _make_graph(["AAAAAA", "AAAA", "AAAAA"], [(0, 1), (0, 2), (1, 2)])
     rpp = [["CCCCCC", "NNNN", "A", "CCAC"]]
     got = msw.PairedGraphSW([g], device="cpu").score_pairs(rpp)
-    want = jax_msw.PairedGraphSW([g], interpret=True).score_pairs(rpp)
+    want = jax_msw.PairedGraphSW([jax_graph(g)],
+                                 interpret=True).score_pairs(rpp)
     _assert_pairs_equal(got, want)
     f_out = got[0][0]
     assert (f_out[0][:2] == 0).all() and (f_out[4][:2] == 1).all()

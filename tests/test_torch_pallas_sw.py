@@ -15,12 +15,13 @@ import numpy as np
 import pytest
 import torch
 
-from paragraph_tpu.graph.model import SequenceGraph
 from paragraph_tpu.ops import batched_sw as jax_bsw
 from paragraph_tpu.ops import pallas_sw as jax_psw
+from paragraph_tpu_torch.graph.model import SequenceGraph
 from paragraph_tpu_torch.ops import pallas_sw as psw
 
 from test_gssw_vs_reference import _random_graph, _read_from_graph
+from torch_twins import jax_graph
 
 FIELDS = ("score", "end_node", "end_ref", "end_read", "multi")
 
@@ -90,7 +91,7 @@ def test_reference_fill_matches_pallas_kernel(name):
     max_len = max(len(r) for r in padded)
     codes, lens, vlens = jax_bsw.encode_reads(padded,
                                               -(max_len // -32) * 32)
-    arrays = jax_bsw.GraphArrays.build(g)
+    arrays = jax_bsw.GraphArrays.build(jax_graph(g))
     want = _jax_fill(arrays, codes, lens, vlens, tb)
     tables = psw.graph_tables_from_numpy(arrays, codes.T, lens, vlens, "cpu")
     got = psw.graph_fill_reference(tables)
@@ -136,11 +137,11 @@ def test_scorer_matches_jax_scorers(name, tile_batch):
     g, reads = SCORER_CASES[name]
     got = psw.SingleGraphSW(g, tile_batch=tile_batch,
                             device="cpu").score(reads)
-    want = jax_psw.PallasGraphSW(g, tile_batch=tile_batch,
+    want = jax_psw.PallasGraphSW(jax_graph(g), tile_batch=tile_batch,
                                  interpret=True).score(reads)
     _assert_equal(got, want)
     # the scan returns the multi flag as bool; the values must agree
-    _assert_equal(got, jax_bsw.BatchedGraphSW(g).score(reads),
+    _assert_equal(got, jax_bsw.BatchedGraphSW(jax_graph(g)).score(reads),
                   same_dtype=False)
 
 
@@ -149,10 +150,10 @@ def test_scores_that_overflow_the_packed_word():
     the scores and it switches to the scan; the port's one fill has no
     packed word and gives the scan's outputs."""
     g, reads = _case(seed=46, max_nodes=3, max_len=12, read_lens=(6, 20))
-    arrays = jax_bsw.GraphArrays.build(g)
+    arrays = jax_bsw.GraphArrays.build(jax_graph(g))
     assert jax_psw.pack_bits(len(arrays.ref_codes), 32, 100000) is None
     got = psw.SingleGraphSW(g, match=100000, device="cpu").score(reads)
-    want = jax_psw.PallasGraphSW(g, match=100000,
+    want = jax_psw.PallasGraphSW(jax_graph(g), match=100000,
                                  interpret=True).score(reads)
     # the scan returns the multi flag as bool; the values must agree
     _assert_equal(got, want, same_dtype=False)
@@ -166,7 +167,8 @@ def test_zero_score_reads_flag_multi():
     g = _make_graph(["AAAAAA", "AAAA", "AAAAA"], [(0, 1), (0, 2), (1, 2)])
     reads = ["CCCCCC", "NNNN", "A", "CCAC"]
     got = psw.SingleGraphSW(g, device="cpu").score(reads)
-    _assert_equal(got, jax_psw.PallasGraphSW(g, interpret=True).score(reads))
+    _assert_equal(got, jax_psw.PallasGraphSW(jax_graph(g),
+                                             interpret=True).score(reads))
     score, end_node, end_ref, end_read, multi = got
     assert (score[:2] == 0).all() and (multi[:2] == 1).all()
     assert (end_ref[:2] == -1).all() and (end_read[:2] == 0).all()
@@ -192,7 +194,8 @@ def test_graph_fill_on_cpu_runs_the_plain_version():
     g, reads = _case(seed=47)
     codes, lens, vlens = jax_bsw.encode_reads(reads, 32)
     tables = psw.graph_tables_from_numpy(
-        jax_bsw.GraphArrays.build(g), codes.T, lens, vlens, "cpu")
+        jax_bsw.GraphArrays.build(jax_graph(g)), codes.T, lens, vlens,
+        "cpu")
     before = psw.graph_fill.launches
     got = psw.graph_fill(tables)
     assert psw.graph_fill.launches == before

@@ -79,14 +79,17 @@ def wl3(tmp_path_factory):
 
 
 def test_per_event_grmpy_matches_jax_package(wl3):
-    from paragraph_tpu.genotyping.sample_info import load_manifest
-    from paragraph_tpu.pipeline.grmpy import run_grmpy as jax_run_grmpy
+    from paragraph_tpu.genotyping.sample_info import (
+        load_manifest as jax_load_manifest)
+    from paragraph_tpu.pipeline.grmpy import (
+        GrmpyParameters as JaxGrmpyParameters, run_grmpy as jax_run_grmpy)
+    from paragraph_tpu_torch.genotyping.sample_info import load_manifest
     from paragraph_tpu_torch.pipeline.grmpy import GrmpyParameters, run_grmpy
 
     wl, opts, graphs = wl3
     want = jax_run_grmpy(copy.deepcopy(graphs), opts.reference,
-                         load_manifest(opts.manifest), None,
-                         GrmpyParameters(threads=1), batch_events=False)
+                         jax_load_manifest(opts.manifest), None,
+                         JaxGrmpyParameters(threads=1), batch_events=False)
     stats = {}
     got = run_grmpy(copy.deepcopy(graphs), opts.reference,
                     load_manifest(opts.manifest), None,
@@ -136,6 +139,7 @@ def test_paragraph_cli_matches_jax_package(wl3, tmp_path):
 _NO_JAX_SCRIPT = r"""
 import sys
 sys.modules["jax"] = None
+sys.modules["paragraph_tpu"] = None
 from paragraph_tpu_torch.cli.main import main
 rc = main(sys.argv[1:])
 assert not any(m == "jax" or m.startswith("jax.")
@@ -180,9 +184,15 @@ def test_paragraph_cli_on_cuda_without_a_card_raises(wl3, tmp_path):
     assert not os.path.exists(out)
 
 
-def _aligner_case():
-    from paragraph_tpu.graph.model import SequenceGraph
-    from paragraph_tpu.reads.read import Read
+def _aligner_case(jax=False):
+    """A graph and reads, of the JAX package's classes when `jax`, else
+    of the port's."""
+    if jax:
+        from paragraph_tpu.graph.model import SequenceGraph
+        from paragraph_tpu.reads.read import Read
+    else:
+        from paragraph_tpu_torch.graph.model import SequenceGraph
+        from paragraph_tpu_torch.reads.read import Read
 
     g = SequenceGraph(
         ["LF", "MID", "INS", "RF"],
@@ -217,11 +227,10 @@ def test_self_scoring_aligner_uses_the_single_graph_fill(trace_uniq_only,
         real_init(self, graph, *args, **kwargs)
 
     monkeypatch.setattr(pallas_sw.SingleGraphSW, "__init__", spy)
-    g, reads = _aligner_case()
-    want_reads = copy.deepcopy(reads)
-    got_reads = copy.deepcopy(reads)
+    g, got_reads = _aligner_case()
+    jax_g, want_reads = _aligner_case(jax=True)
     stats, kernel_stats = {}, {}
-    want = jax_align(g, [], want_reads, None, False, True, False, False,
+    want = jax_align(jax_g, [], want_reads, None, False, True, False, False,
                      trace_uniq_only=trace_uniq_only)
     got = align_reads(g, [], got_reads, None, False, True, False, False,
                       trace_uniq_only=trace_uniq_only, stats_out=stats,

@@ -34,8 +34,13 @@ def _one_torch_thread():
     torch.set_num_threads(n)
 
 
-def _options(wl, out, threads=1):
-    from paragraph_tpu.pipeline.multigrmpy import MultigrmpyOptions
+def _options(wl, out, threads=1, jax=False):
+    """The options of a run on the workload in `wl`, as the JAX package's
+    MultigrmpyOptions when `jax`, else as the port's."""
+    if jax:
+        from paragraph_tpu.pipeline.multigrmpy import MultigrmpyOptions
+    else:
+        from paragraph_tpu_torch.pipeline.multigrmpy import MultigrmpyOptions
 
     return MultigrmpyOptions(
         input=os.path.join(wl, "candidates.vcf"),
@@ -66,7 +71,7 @@ def jax_outputs(wl3):
     from paragraph_tpu.pipeline.multigrmpy import run
 
     out = os.path.join(wl3, "jax")
-    run(_options(wl3, out))
+    run(_options(wl3, out, jax=True))
     return _outputs(out)
 
 
@@ -90,6 +95,7 @@ def test_slice_matches_jax_package(wl3, jax_outputs):
 _NO_JAX_SCRIPT = r"""
 import importlib, pkgutil, sys
 sys.modules["jax"] = None
+sys.modules["paragraph_tpu"] = None
 import paragraph_tpu_torch
 names = [m.name for m in pkgutil.walk_packages(
     paragraph_tpu_torch.__path__, "paragraph_tpu_torch.")]
@@ -130,7 +136,7 @@ def wl8(tmp_path_factory):
 
 
 def test_pipelined_matches_batch_path(wl8):
-    from paragraph_tpu.genotyping.sample_info import load_manifest
+    from paragraph_tpu_torch.genotyping.sample_info import load_manifest
     from paragraph_tpu_torch.pipeline.grmpy import GrmpyParameters, run_grmpy
     from paragraph_tpu_torch.pipeline.multigrmpy import (
         load_graph_description)
@@ -161,7 +167,7 @@ def test_pipelined_matches_batch_path(wl8):
 def test_native_library_loads_before_workers_spawn(monkeypatch):
     """Workers that race on the native library's first build fail to load
     it and trace back in Python; the parent builds it first."""
-    import paragraph_tpu.align.native as native
+    import paragraph_tpu_torch.align.native as native
     from paragraph_tpu_torch.pipeline import parallel_grmpy
     from paragraph_tpu_torch.pipeline.grmpy import GrmpyParameters
 
@@ -180,7 +186,7 @@ def test_native_library_loads_before_workers_spawn(monkeypatch):
 
 
 def test_workers_refuse_to_score():
-    from paragraph_tpu.genotyping.sample_info import SampleInfo
+    from paragraph_tpu_torch.genotyping.sample_info import SampleInfo
     from paragraph_tpu_torch.pipeline.grmpy import GrmpyParameters
     from paragraph_tpu_torch.pipeline.parallel_grmpy import _analyze_event
 
@@ -209,10 +215,9 @@ def test_cuda_without_a_card_raises(wl3, tmp_path):
         pytest.skip("a card is present: the cuda path runs instead")
     from paragraph_tpu_torch import resolve_device
     from paragraph_tpu_torch.align.batched_aligner import BatchedGraphAligner
+    from paragraph_tpu_torch.graph.model import SequenceGraph
     from paragraph_tpu_torch.ops.multi_sw import PairedGraphSW
     from paragraph_tpu_torch.pipeline.multigrmpy import run
-
-    from paragraph_tpu.graph.model import SequenceGraph
 
     with pytest.raises(RuntimeError, match="cuda"):
         resolve_device("cuda")
@@ -227,9 +232,15 @@ def test_cuda_without_a_card_raises(wl3, tmp_path):
     assert not os.path.exists(os.path.join(out, "genotypes.json.gz"))
 
 
-def _aligner_case():
-    from paragraph_tpu.graph.model import SequenceGraph
-    from paragraph_tpu.reads.read import Read
+def _aligner_case(jax=False):
+    """A graph and reads, of the JAX package's classes when `jax`, else
+    of the port's."""
+    if jax:
+        from paragraph_tpu.graph.model import SequenceGraph
+        from paragraph_tpu.reads.read import Read
+    else:
+        from paragraph_tpu_torch.graph.model import SequenceGraph
+        from paragraph_tpu_torch.reads.read import Read
 
     g = SequenceGraph(
         ["LF", "MID", "INS", "RF"],
@@ -248,11 +259,10 @@ def test_self_scoring_aligner_matches_jax(trace_uniq_only):
     from paragraph_tpu.align.composite import align_reads as jax_align
     from paragraph_tpu_torch.align.composite import align_reads
 
-    g, reads = _aligner_case()
-    want_reads = copy.deepcopy(reads)
-    got_reads = copy.deepcopy(reads)
+    g, got_reads = _aligner_case()
+    jax_g, want_reads = _aligner_case(jax=True)
     stats = {}
-    want = jax_align(g, [], want_reads, None, False, True, False, False,
+    want = jax_align(jax_g, [], want_reads, None, False, True, False, False,
                      trace_uniq_only=trace_uniq_only)
     got = align_reads(g, [], got_reads, None, False, True, False, False,
                       trace_uniq_only=trace_uniq_only, stats_out=stats,

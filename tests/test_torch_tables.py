@@ -9,14 +9,15 @@ import random
 import numpy as np
 import pytest
 
-from paragraph_tpu.graph.model import SequenceGraph
 from paragraph_tpu.ops import batched_sw as jax_bsw
 from paragraph_tpu.ops import multi_sw as jax_msw
 from paragraph_tpu.ops import pallas_sw as jax_psw
+from paragraph_tpu_torch.graph.model import SequenceGraph
 from paragraph_tpu_torch.ops import batched_sw as bsw
 from paragraph_tpu_torch.ops import multi_sw as msw
 
 from test_gssw_vs_reference import _random_graph, _read_from_graph
+from torch_twins import jax_graph, jax_graphs
 
 
 def _make_graph(seqs, edges):
@@ -77,7 +78,7 @@ def test_graph_arrays_match(name, bucket):
     graphs, _ = _case(**CASES[name])
     for g in graphs:
         for gg in (g, g.reversed()):
-            want = jax_bsw.GraphArrays.build(gg, bucket=bucket)
+            want = jax_bsw.GraphArrays.build(jax_graph(gg), bucket=bucket)
             got = bsw.GraphArrays.build(gg, bucket=bucket)
             for field in ("ref_codes", "col_node", "col_in_node",
                           "is_start", "is_last", "pred_table",
@@ -118,7 +119,8 @@ def _multi(graphs):
     for g in graphs:
         pairs.append(g)
         pairs.append(g.reversed())
-    return (msw.MultiGraphArrays(pairs), jax_msw.MultiGraphArrays(pairs))
+    return (msw.MultiGraphArrays(pairs),
+            jax_msw.MultiGraphArrays(jax_graphs(pairs)))
 
 
 @pytest.mark.parametrize("name", sorted(CASES))
@@ -141,13 +143,13 @@ def test_node_id_limit_refused_by_both(n_nodes, fits):
         g.add_edge(i - 1, i)
     if fits:
         got = msw.MultiGraphArrays([g])
-        want = jax_msw.MultiGraphArrays([g])
+        want = jax_msw.MultiGraphArrays([jax_graph(g)])
         assert got.n_max == 4092
         _assert_same(got.packed_cols, want.packed_cols)
         _assert_same(got.pred_tables, want.pred_tables)
         return
     with pytest.raises(AssertionError):
-        jax_msw.MultiGraphArrays([g])
+        jax_msw.MultiGraphArrays([jax_graph(g)])
     with pytest.raises(ValueError, match="12-bit"):
         msw.MultiGraphArrays([g])
 
