@@ -8,14 +8,17 @@ Phases, in order; any failure exits non-zero before the result line:
 1. device: torch / CUDA versions and the card's name and power limit
    (nvidia-smi); requires torch.cuda.is_available().
 2. build: nvcc builds the kernels from paragraph_tpu_torch/ops/csrc/
-   (first use; one nvcc per source, started together), with the ptxas
-   report.
+   (first use; one nvcc per source, started together), with each
+   kernel's registers and spills from ptxas (a spill in a warp-per-lane
+   kernel fails the run) and the warp-per-lane kernels' resident warps
+   per SM at M=160 and M=800 (cudaOccupancyMaxActiveBlocksPerMultiprocessor).
 3. K1 kernel vs plain: seeded random cases (N bases, read lengths 6-150,
    empty pairs, pad tiles, reads longer than the graph, int16 and int32
-   col_idx) and one full-size dispatch (the first dispatch of phase 4's
-   first round) go through the paired kernel and the plain PyTorch fill
-   on the same CUDA tensors; the [4, B] outputs must be identical
-   (tolerance 0: integer DP outputs). Times both at the full-size shape.
+   col_idx), a long-read case (reads of 480-800 bases, M >= 512) and one
+   full-size dispatch (the first dispatch of phase 4's first round) go
+   through the paired kernel and the plain PyTorch fill on the same CUDA
+   tensors; the [4, B] outputs must be identical (tolerance 0: integer DP
+   outputs). Times both at the full-size shape, with the bound.
 4. main path: the port's multigrmpy with device="cuda" on the repo's
    end-to-end workload (tests/tools/make_workload.py: 1000 mixed
    DEL/INS/DUP/INV/DEL+SNP events, 30x, 150 bp pairs, one sample, seed
@@ -31,11 +34,11 @@ Phases, in order; any failure exits non-zero before the result line:
    the same CUDA tensors over phase 3's seeded graphs (N bases, read
    lengths 6-150, reads longer than the graph, a single read, lane
    counts that are not multiples of 32), a case whose scores overflow
-   the JAX scorer's packed word (match=100000), and one full-size
-   dispatch: the largest-graph event of the first 200, its extracted
-   reads repeated to 10,000, as the forward batch of 20,000
-   orientations. Outputs identical; times both at that size and at the
-   event's own read count.
+   the JAX scorer's packed word (match=100000), phase 3's long-read
+   graphs, and one full-size dispatch: the largest-graph event of the
+   first 200, its extracted reads repeated to 10,000, as the forward
+   batch of 20,000 orientations. Outputs identical; times both, with the
+   bound, at that size and at the event's own read count.
 7. per-event path: the first 200 events through the port's run_grmpy
    with batch_events=False on cuda (the single-graph kernel, twice per
    (event, sample) with reads; no paired launch), then genotypes.json.gz
@@ -76,6 +79,7 @@ import gzip
 import json
 import os
 import random
+import re
 import subprocess
 import sys
 import time
@@ -95,6 +99,11 @@ GRAPH_SOURCE = "paragraph_tpu_torch/ops/csrc/graph_sw.cu"
 GRAPH_REPLACES = "paragraph_tpu/ops/pallas_sw.py:91"
 MULTI_REPLACES = "paragraph_tpu/ops/multi_sw.py:280"
 KBENCH_SOURCE = "paragraph_tpu_torch/ops/csrc/kbench_sw.cu"
+#: the long-read cases of phases 3 and 6: reads of 480-800 bases, so M up
+#: to LONG_M read rows (25 and 26 rows per thread in the warp-per-lane
+#: kernels)
+LONG_READS = (480, 800)
+LONG_M = 800
 #: the TPU kernel bodies of tools/kbench2.py and the exact variant of each
 #: that phase 10 reports
 KBENCH_BODIES = {"make_kernel": ("tools/kbench2.py:35", "v0"),
@@ -147,8 +156,38 @@ def phase_device() -> str:
 # ---------------------------------------------------------------- phase 2
 
 
+def ptxas_report(log: str):
+    """(kernel, registers, spilled bytes) of every entry function in
+    nvcc's -Xptxas -v output, the warp-per-lane kernels labelled by their
+    rows per thread R (graph_sw R, paired_sw R, multi_sw R for the paired
+    kernel with the orientation expansion off)."""
+    out, name, spill = [], None, 0
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            k = re.search(r"(graph_sw|paired_sw)_kernelILi(\d+)E(?:Lb([01])E)?",
+                          m.group(1))
+            if k is None:
+                name = re.sub(r"^.*?(kbench_sw_kernel)", r"\1", m.group(1))
+            else:
+                kind = "multi_sw" if k.group(3) == "0" else k.group(1)
+                name = f"{kind} R={k.group(2)}"
+            spill = 0
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m and name:
+            spill = int(m.group(1)) + int(m.group(2))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and name:
+            out.append((name, int(m.group(1)), spill))
+            name = None
+    return out
+
+
 def phase_build() -> None:
     from paragraph_tpu_torch.ops import _build
+    from paragraph_tpu_torch.ops.multi_sw import WARP_LANES_PER_CTA
 
     t0 = time.perf_counter()
     _build.load()
@@ -156,9 +195,19 @@ def phase_build() -> None:
             else f"nvcc {_build.build_seconds:.2f}s")
     say(f"[build] {_build.library_path().relative_to(ROOT)}: {nvcc}, "
         f"loaded in {time.perf_counter() - t0:.2f}s")
-    for line in _build.build_log.splitlines():
-        if "registers" in line or "spill" in line:
-            say(f"[build] {line.strip()}")
+    report = ptxas_report(_build.build_log)
+    for name, regs, spill in report:
+        say(f"[build] {name}: {regs} registers, {spill} bytes spilled")
+    spilled = [r for r in report if r[2] and "kbench" not in r[0]]
+    if _build.build_log and (spilled or not report):
+        raise AssertionError(f"ptxas spilled or reported nothing: {spilled}")
+    # resident lanes (warps) per SM of the warp-per-lane kernels, at the
+    # main path's M and the long-read cases' largest
+    for kernel in ("graph_sw", "paired_sw", "multi_sw"):
+        warps = {m: _build.blocks_per_sm(kernel, m, WARP_LANES_PER_CTA)
+                 * WARP_LANES_PER_CTA for m in (160, LONG_M)}
+        say(f"[build] {kernel}: resident warps (lanes) per SM "
+            + ", ".join(f"{w} at M={m}" for m, w in warps.items()))
 
 
 # ---------------------------------------------------------------- phase 3
@@ -245,6 +294,24 @@ def kernel_cases(seed: int):
         ("pad_tiles", *pairs(3, 5, 40, (40, 70), (30, 150))),
         ("many_pairs", *pairs(48, 10, 200, (20, 120), (100, 150))),
     ]
+
+
+def long_read_case(seed: int):
+    """(graphs, reads per pair) with reads of LONG_READS bases: two graphs
+    of long nodes, reads drawn from them, and one read of the first LONG_M
+    bases of a graph's node sequences."""
+    rng = random.Random(seed)
+    graphs, rpp = [], []
+    for _ in range(2):
+        seqs, edges = _random_graph(rng, 6, 300)
+        seqs = [s + "".join(rng.choice("ACGT") for _ in range(300))
+                for s in seqs]
+        graphs.append(_make_graph(seqs, edges))
+        reads = [_read_from_graph(rng, seqs, edges,
+                                  read_len=rng.randint(*LONG_READS))
+                 for _ in range(rng.randint(20, 40))]
+        rpp.append([r for r in reads if r] + ["".join(seqs)[:LONG_M]])
+    return graphs, rpp
 
 
 def _case_tables(graphs, rpp, device):
@@ -351,6 +418,14 @@ def phase_kernel_cases(card: str):
             say(f"[kernel] case {name} chunk {ci}: {lanes} lanes, "
                 f"M={t['m']}, col_idx {t['col_idx'].dtype}: kernel == "
                 f"plain (int16 and int32 col_idx)")
+    for ci, (tables, t) in enumerate(_case_tables(*long_read_case(7),
+                                                  "cuda")):
+        if t["m"] < 512:
+            raise AssertionError(f"long-read case has M={t['m']} < 512")
+        max_err = max(max_err, _compare(paired_fill, paired_fill_reference,
+                                        tables, f"long reads[{ci}]"))
+        say(f"[kernel] case long reads chunk {ci}: "
+            f"{tables.col_idx.shape[0]} lanes, M={t['m']}: kernel == plain")
     return max_err
 
 
@@ -383,7 +458,7 @@ def _first_round_tables(wl: str):
     return dispatch_tables(t, *graph_tensors(a, sw.device), sw.device), t
 
 
-def phase_full_dispatch(card: str, wl: str):
+def phase_full_dispatch(card: str, wl: str, clock_hz: float):
     import torch
 
     from paragraph_tpu_torch.ops.multi_sw import (paired_fill,
@@ -412,12 +487,15 @@ def phase_full_dispatch(card: str, wl: str):
     kernel_ms = start.elapsed_time(stop) / reps
     cells = int(t["tile_col_len"].astype("int64").sum()) \
         * (B // len(t["tile_col_len"])) * t["m"]
+    bound_ms, bound_by = fill_bound(tables, clock_hz)
     say(f"[kernel] full-size dispatch: T={len(t['tile_col_len'])} tiles "
         f"B={B} lanes M={t['m']} N={tables.pred_tables.shape[1]} "
         f"P={tables.pred_tables.shape[2]} max_clen="
         f"{int(t['tile_col_len'].max())} cells={cells}: kernel == plain; "
         f"kernel {kernel_ms:.3f} ms ({cells / kernel_ms / 1e6:.2f} "
-        f"Gcells/s), plain {plain_ms:.1f} ms [{card}]")
+        f"Gcells/s), bound {bound_ms:.3f} ms ({bound_by}, "
+        f"{100 * bound_ms / kernel_ms:.1f}% of it), plain {plain_ms:.1f} ms "
+        f"[{card}]")
     return err, kernel_ms, plain_ms, tables
 
 
@@ -606,7 +684,7 @@ def _time_fill(kernel, plain, tables, reps):
     return kernel_ms, (time.perf_counter() - t0) * 1e3
 
 
-def phase_graph_kernel(card: str, opts, descs):
+def phase_graph_kernel(card: str, opts, descs, clock_hz: float):
     from paragraph_tpu_torch.align.graph_aligner import reverse_complement
     from paragraph_tpu_torch.genotyping.sample_info import load_manifest
     from paragraph_tpu_torch.graph.model import SequenceGraph
@@ -638,6 +716,13 @@ def phase_graph_kernel(card: str, opts, descs):
         "match=100000", match=100000))
     say("[graph] single read and match=100000 (scores past the packed "
         "word): kernel == plain")
+    for g, reads in zip(*long_read_case(7)):
+        tables = _graph_tables(g, reads)
+        M, B = tables.read_codes_t.shape
+        if M < 512:
+            raise AssertionError(f"long-read case has M={M} < 512")
+        max_err = max(max_err, compare(tables, f"long reads ({B})"))
+        say(f"[graph] case long reads: kernel == plain at {B} lanes, M={M}")
 
     # full size: the largest graph of the per-event run, its reads
     # repeated to FULL_READS, forward batch (fwd + revcomp)
@@ -667,10 +752,13 @@ def phase_graph_kernel(card: str, opts, descs):
         times[label] = (kernel_ms, plain_ms)
         if label == "full":
             full_tables = tables
+        bound_ms, bound_by = fill_bound(tables, clock_hz)
         say(f"[graph] {label} dispatch, event {gi}: L={cols[gi]} N={N} "
             f"P={P} M={M} B={B} lanes: kernel == plain; kernel "
             f"{kernel_ms:.3f} ms ({cols[gi] * B * M / kernel_ms / 1e6:.2f} "
-            f"Gcells/s issued), plain {plain_ms:.1f} ms [{card}]")
+            f"Gcells/s issued), bound {bound_ms:.4f} ms ({bound_by}, "
+            f"{100 * bound_ms / kernel_ms:.1f}% of it), plain "
+            f"{plain_ms:.1f} ms [{card}]")
     return max_err, times["full"][0], times["full"][1], full_tables
 
 
@@ -979,12 +1067,12 @@ def main() -> int:
     err = phase_kernel_cases(card)
     events = ensure_workload(WORKLOAD)
     err_full, kernel_ms, plain_ms, k1_tables = phase_full_dispatch(
-        card, WORKLOAD)
+        card, WORKLOAD, clock_hz)
     launches = phase_main_path(card, WORKLOAD, events)
     phase_cuda_equals_cpu(card, WORKLOAD, events)
     opts, descs = _first_events_graphs(WORKLOAD, events, PER_EVENT_EVENTS)
     g_err, g_ms, g_plain_ms, k3_tables = phase_graph_kernel(card, opts,
-                                                            descs)
+                                                            descs, clock_hz)
     g_launches = phase_per_event(card, WORKLOAD, events, opts, descs)
     phase_paragraph_cli(card, WORKLOAD, opts, descs[:CLI_EVENTS])
     m_err, m_launches, m_ms, m_plain_ms, k2_tables = phase_multi_kernel(card)

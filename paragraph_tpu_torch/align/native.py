@@ -1,13 +1,14 @@
 """ctypes binding for the native C++ graph-SW engine (native/graph_sw.cpp).
 
-Builds the shared library on first use (make -C native); falls back
-gracefully when no compiler is available. The native engine provides
-C-speed fill+traceback for CIGAR production of kept reads while the TPU
-batched scorer handles orientation ranking.
+Builds the shared library on first use (make -C native), under a
+cross-process lock; falls back gracefully when no compiler is available.
+The native engine provides C-speed fill+traceback for CIGAR production
+of kept reads while the TPU batched scorer handles orientation ranking.
 """
 from __future__ import annotations
 
 import ctypes
+import fcntl
 import os
 import subprocess
 import threading
@@ -19,10 +20,30 @@ _NATIVE_DIR = os.path.join(
     os.path.dirname(os.path.dirname(os.path.dirname(
         os.path.abspath(__file__)))), "native")
 _LIB_PATH = os.path.join(_NATIVE_DIR, "libparagraph_sw.so")
+#: the cross-process build lock, in _NATIVE_DIR
+_LOCK_NAME = "libparagraph_sw.lock"
 
 _lib = None
 _lib_lock = threading.Lock()
 _lib_failed = False
+
+
+def _build_and_open() -> ctypes.CDLL:
+    """Build the library if it is missing or older than its sources, and
+    open it, under an exclusive lock on a file beside it shared by every
+    process: one process builds while the others wait, then find it built
+    and open it. Without the lock, processes racing on a fresh checkout
+    open a library that another one is still writing."""
+    with open(os.path.join(_NATIVE_DIR, _LOCK_NAME), "a") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        srcs_mtime = max(
+            os.path.getmtime(os.path.join(_NATIVE_DIR, f))
+            for f in ("graph_sw.cpp", "bam_scan.cpp"))
+        if not os.path.exists(_LIB_PATH) or (
+                os.path.getmtime(_LIB_PATH) < srcs_mtime):
+            subprocess.run(["make", "-C", _NATIVE_DIR],
+                           check=True, capture_output=True)
+        return ctypes.CDLL(_LIB_PATH)
 
 
 def _load_lib() -> Optional[ctypes.CDLL]:
@@ -33,14 +54,7 @@ def _load_lib() -> Optional[ctypes.CDLL]:
         if _lib_failed:
             return None
         try:
-            srcs_mtime = max(
-                os.path.getmtime(os.path.join(_NATIVE_DIR, f))
-                for f in ("graph_sw.cpp", "bam_scan.cpp"))
-            if not os.path.exists(_LIB_PATH) or (
-                    os.path.getmtime(_LIB_PATH) < srcs_mtime):
-                subprocess.run(["make", "-C", _NATIVE_DIR],
-                               check=True, capture_output=True)
-            lib = ctypes.CDLL(_LIB_PATH)
+            lib = _build_and_open()
             lib.gsw_create.restype = ctypes.c_void_p
             lib.gsw_create.argtypes = [
                 ctypes.c_int, ctypes.POINTER(ctypes.c_char_p),

@@ -104,11 +104,18 @@ def load() -> ctypes.CDLL:
         vp, i = ctypes.c_void_p, ctypes.c_int
         lib.paired_sw_launch.restype = i
         lib.paired_sw_launch.argtypes = (
-            [vp] * 9 + [i] + [vp] * 4 + [i] * 14 + [vp])
+            [vp] * 9 + [i] + [vp] * 4 + [i] * 12 + [vp])
         lib.multi_sw_launch.restype = i
-        lib.multi_sw_launch.argtypes = [vp] * 10 + [i] * 13 + [vp]
+        lib.multi_sw_launch.argtypes = [vp] * 10 + [i] * 11 + [vp]
         lib.graph_sw_launch.restype = i
         lib.graph_sw_launch.argtypes = [vp] * 10 + [i] * 11 + [vp]
+        lib.sw_warp_rows.restype = i
+        lib.sw_warp_rows.argtypes = [i]
+        ip = ctypes.POINTER(ctypes.c_int)
+        lib.graph_sw_blocks_per_sm.restype = i
+        lib.graph_sw_blocks_per_sm.argtypes = [i, i, ip]
+        lib.paired_sw_blocks_per_sm.restype = i
+        lib.paired_sw_blocks_per_sm.argtypes = [i, i, i, ip]
         lib.kbench_sw_launch.restype = i
         lib.kbench_sw_launch.argtypes = [i] + [vp] * 10 + [i] * 13 + [vp]
         lib.paired_sw_error_string.restype = ctypes.c_char_p
@@ -119,6 +126,23 @@ def load() -> ctypes.CDLL:
 
 def error_string(lib, code: int) -> str:
     return f"{code} ({lib.paired_sw_error_string(code).decode()})"
+
+
+def blocks_per_sm(kernel: str, M: int, lanes_per_block: int) -> int:
+    """CTAs of `lanes_per_block` warps that one SM holds at once for a
+    warp-per-lane kernel ("graph_sw", "paired_sw" or "multi_sw") at M read
+    rows (cudaOccupancyMaxActiveBlocksPerMultiprocessor)."""
+    lib = load()
+    n = ctypes.c_int(0)
+    if kernel == "graph_sw":
+        err = lib.graph_sw_blocks_per_sm(M, lanes_per_block, ctypes.byref(n))
+    else:
+        err = lib.paired_sw_blocks_per_sm(
+            M, lanes_per_block, int(kernel == "paired_sw"), ctypes.byref(n))
+    if err:
+        raise RuntimeError(f"{kernel} occupancy at M={M}: "
+                           f"{error_string(lib, err)}")
+    return n.value
 
 
 def launch(fn_name: str, dev, scratch_words: int, n_lanes: int, inputs,

@@ -9,56 +9,39 @@
 // the multi-node flag. The plain PyTorch version is graph_fill_reference
 // in ops/pallas_sw.py.
 //
-// What bounds it on this card. Each DP cell costs ~15 integer ALU
-// operations and five shared-memory accesses (load H, E and the read
-// code; store H and E); rows are a sequential recurrence per lane, so a
-// lane's time is L x rows dependent steps. On the per-event path the
-// launch is small: an event's graph has a few hundred to about a thousand
-// columns and its reads give a few hundred to a thousand lanes, that is
-// 8-32 CTAs of 32 lanes on 132 SMs, so most of the card idles and the
-// kernel's time is one lane's chain of dependent steps (latency), not
-// throughput. Only the largest launches (paragraph -M 10000: 20,000
-// lanes) fill the card, and are then bound by integer issue and
-// shared-memory bandwidth as K1 is.
+// What bounds it on this card. A lane is a chain of L dependent columns.
+// On the per-event path a launch holds one event's reads: a few hundred
+// to a thousand lanes over a few hundred to a thousand columns, too few
+// lanes to fill 132 SMs with one thread each. There the kernel is bound by
+// the latency of one lane's column chain. Only the largest launches
+// (paragraph -M 10000: 20,000 lanes) fill the card, and are then bound by
+// INT32 issue: about 15 integer operations per cell, plus the scan's
+// shuffles and the per-column work, which thread t spreads over its R rows.
 //
-// What this simple design does about it. One thread owns one lane and
-// walks the graph's columns; for each column it runs the rows j < vlen
-// (rows at or past the striped length never influence rows above them,
-// and count neither for the end cell nor for the multi flag) in the
-// sequential form of the TPU kernel's closed-form prefix max:
-//     hp  = max(diag + prof, 0, E_j)
-//     F_j = max(0, F_{j-1} - gapE, hp_{j-1} - gapO)        (F_0 = 0)
-//     H_j = max(hp, F_j)
-//     E_j = max(E_j - gapE, H_j - gapO, 0)
-// which is exact because gapO >= gapE. The H/E column and the read's
-// codes live in shared memory laid out [M][lanes], so neighbouring
-// threads touch neighbouring words. All lanes of a launch share the
-// graph, so each column's reference code, node id and start/last flags
-// are broadcast loads through the read-only cache. The TPU kernel's
-// packed end-cell word is not needed: one thread sees its lane's cells in
-// column order, and within a column in row order, so three scalars
-// (best, column, row) updated on a strict > give gssw's order (highest
-// score, then the first column, then the lowest row) with no limit on
-// the score's bits. The node maximum over real rows is one running scalar,
-// reset at a node's first column and stored at its last. Saved boundary
-// states [N][M][lanes] and node maxima [N][lanes] are per-CTA scratch in
-// device memory that the wrapper allocates; the zero-state slot N is
-// never stored, since H and E are never negative and seeding starts from
-// zero. Edges are topological (SequenceGraph refuses others), so every
-// predecessor's last column precedes its successor's first column and
-// each saved state is written before it is read. The grid is capped so
-// the scratch stays within the wrapper's budget, and each CTA strides
-// over lane groups; lanes past B idle.
-//
-// Left for later: a warp per read with the F recurrence as a shuffle
-// prefix max, which spreads one lane's rows over 32 threads and fills
-// the SMs that small per-event launches leave idle; DPX maxima; int16
-// state.
+// What this design does about it (sw_warp.cuh). One warp owns one lane and
+// each of its threads R = ceil(M / 32) rows, in registers, so a column of
+// a lane is 32 threads working at once: its latency is R dependent steps
+// twice and a five-step shuffle scan for F, not M steps, and a per-event
+// launch of 480 lanes puts 480 warps on the card instead of 15. There is
+// no per-cell shared-memory traffic: the TPU kernel's rows along its
+// vector's sublanes, with F as a log-step prefix max, become rows across
+// a warp's threads with F as a shuffle prefix max. The end cell is three
+// scalars per thread (no packed word, so no limit on the score's bits,
+// and match=100000 runs here too), reduced over the warp at the lane's
+// end. All lanes of a launch share the graph, so each column's reference
+// code, node id and start/last flags are broadcast loads through the
+// read-only cache. Edges are topological (SequenceGraph refuses others), so
+// every predecessor's last column precedes its successor's first column
+// and each saved state is written before it is read. A CTA holds
+// lanes_per_block warps; the grid is capped so the scratch stays within
+// the wrapper's budget, and each warp strides over lanes; warps past B
+// idle.
 
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "sw_warp.cuh"
 
 namespace {
+
+using namespace sw_warp;
 
 struct GraphParams {
   const int32_t* __restrict__ ref_codes;   // [L] 0-3 ACGT, 4 N or pad
@@ -69,115 +52,97 @@ struct GraphParams {
   const int8_t* __restrict__ read_codes_t; // [M][B] 0-3 ACGT, 4 N, 5 pad
   const int32_t* __restrict__ lens;        // [B]
   const int32_t* __restrict__ vlens;       // [B]
-  int32_t* scratch;                        // [grid][2 N M + N][lanes]
+  int32_t* scratch;                        // [grid][warps][lane_words]
   int32_t* out;                            // [4][B]
   int L, N, P, M, B;
-  int gap_open, gap_extend, match, mismatch;
+  Scoring s;
 };
 
+template <int R>
 __global__ void graph_sw_kernel(const GraphParams p) {
-  extern __shared__ int32_t smem[];
-  const int lpb = blockDim.x;
-  const int tid = threadIdx.x;
-  const int M = p.M, N = p.N, P = p.P;
-  int32_t* sh_h = smem;                     // [M][lpb]
-  int32_t* sh_e = smem + M * lpb;           // [M][lpb]
-  int8_t* sh_code = reinterpret_cast<int8_t*>(smem + 2 * M * lpb);
+  const int t = threadIdx.x % kGroup;
+  const int warps = blockDim.x / kGroup;
+  const int w = threadIdx.x / kGroup;
+  const int N = p.N, M = p.M;
+  constexpr int slot = R * kGroup;
+  int32_t* saved_h =
+      p.scratch + (static_cast<size_t>(blockIdx.x) * warps + w) *
+                      lane_words(N, R);
+  int32_t* saved_e = saved_h + static_cast<size_t>(N) * slot;
+  int32_t* node_max = saved_e + static_cast<size_t>(N) * slot;
 
-  const size_t state = static_cast<size_t>(M) * lpb;
-  int32_t* saved_h = p.scratch + blockIdx.x * (2 * N * state +
-                                               static_cast<size_t>(N) * lpb);
-  int32_t* saved_e = saved_h + N * state;
-  int32_t* node_max = saved_e + N * state;
+  for (int lane = blockIdx.x * warps + w; lane < p.B;
+       lane += gridDim.x * warps) {
+    const int len = p.lens[lane];
+    const int n_stripe = rows_below<R>(min(p.vlens[lane], M), t);
+    const int n_real = rows_below<R>(min(len, M), t);
+    const CodeBits codes = load_codes<R>(t, M, [&](int j) {
+      return static_cast<int>(p.read_codes_t[static_cast<size_t>(j) * p.B +
+                                             lane]);
+    });
+    zero_node_max(node_max, N, t);
 
-  const int n_groups = (p.B + lpb - 1) / lpb;
-  for (int grp = blockIdx.x; grp < n_groups; grp += gridDim.x) {
-    const int lane = grp * lpb + tid;
-    const bool live = lane < p.B;
-    const int len = live ? p.lens[lane] : 0;
-    const int rows = live ? min(p.vlens[lane], M) : 0;
-
-    for (int j = 0; j < rows; ++j) {
-      sh_code[j * lpb + tid] =
-          p.read_codes_t[static_cast<size_t>(j) * p.B + lane];
-      sh_h[j * lpb + tid] = 0;
-      sh_e[j * lpb + tid] = 0;
+    int h[R], e[R];
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      h[r] = 0;
+      e[r] = 0;
     }
-
     int best = 0, best_col = 0, best_row = 0;
-    int nodecol = 0;
+    int node_run = 0;
     for (int c = 0; c < p.L; ++c) {
-      const int ref_c = p.ref_codes[c];
-      const int nid = p.col_node[c];
-      const bool start = p.is_start[c] != 0;
-      const bool last = p.is_last[c] != 0;
-      const int32_t* preds = p.pred_table + nid * P;
-      int32_t* sv_h = saved_h + nid * state;
-      int32_t* sv_e = saved_e + nid * state;
-      if (start) nodecol = 0;
-      int diag = 0;     // H of row j-1 in the previous column
-      int hp_prev = 0;  // H' of row j-1 in this column
-      int f = 0;
-      for (int j = 0; j < rows; ++j) {
-        const int idx = j * lpb + tid;
-        int h_old, e;
-        if (start) {
-          // seed: elementwise max of the predecessors' saved states; the
-          // zero-state slot N adds nothing to a max of non-negatives
-          h_old = 0;
-          e = 0;
-          for (int q = 0; q < P; ++q) {
-            const int pq = preds[q];
-            if (pq < N) {
-              h_old = max(h_old, saved_h[pq * state + idx]);
-              e = max(e, saved_e[pq * state + idx]);
-            }
-          }
-        } else {
-          h_old = sh_h[idx];
-          e = sh_e[idx];
-        }
-        const int code = sh_code[idx];
-        const int prof = (ref_c < 4 && code < 4)
-                             ? (code == ref_c ? p.match : -p.mismatch)
-                             : 0;
-        const int hp = max(max(diag + prof, 0), e);
-        if (j > 0) f = max(max(f - p.gap_extend, hp_prev - p.gap_open), 0);
-        const int h = max(hp, f);
-        const int e_next = max(max(e - p.gap_extend, h - p.gap_open), 0);
-        sh_h[idx] = h;
-        sh_e[idx] = e_next;
-        if (last) {
-          sv_h[idx] = h;
-          sv_e[idx] = e_next;
-        }
-        if (h > best) {
-          best = h;
-          best_col = c;
-          best_row = j;
-        }
-        if (j < len) nodecol = max(nodecol, h);
-        diag = h_old;
-        hp_prev = hp;
+      const int ref_c = __ldg(p.ref_codes + c);
+      const int nid = __ldg(p.col_node + c);
+      if (__ldg(p.is_start + c)) {
+        seed<R>(h, e, p.pred_table + nid * p.P, p.P, N, saved_h, saved_e, t);
+        node_run = 0;
       }
-      if (last) node_max[nid * lpb + tid] = nodecol;
+      int col_max = 0;
+      column_step<R>(h, e, column_bits(codes, ref_c), p.s, t, n_stripe,
+                     n_real, col_max, node_run);
+      if (col_max > best) {
+        best = col_max;
+        best_col = c;
+        best_row = t * R + first_row<R>(h, col_max, n_stripe);
+      }
+      if (__ldg(p.is_last + c)) {
+        save<R>(h, e, nid, node_run, saved_h, saved_e, node_max, t);
+      }
     }
 
-    if (live) {
-      // every node slot counts, filler nodes included: a zero-score lane
-      // with N > 1 gets multi = 1, as in the TPU kernel
-      int n_top = 0;
-      for (int n = 0; n < N; ++n) n_top += node_max[n * lpb + tid] == best;
+    reduce_end(best, best_col, best_row);
+    __syncwarp();
+    // every node slot counts, filler nodes included: a zero-score lane
+    // with N > 1 gets multi = 1, as in the TPU kernel
+    const int n_top = count_top(node_max, N, best, t);
+    if (t == 0) {
       const bool zero = best == 0;
       p.out[lane] = best;
       p.out[p.B + lane] = zero ? -1 : best_col;
       p.out[2 * p.B + lane] = zero ? 0 : min(best_row, len - 1);
       p.out[3 * p.B + lane] = n_top > 1;
     }
+    __syncwarp();
   }
 }
 
+template <int R>
+int launch(const GraphParams& p, int lanes_per_block, int grid,
+           cudaStream_t stream) {
+  graph_sw_kernel<R><<<grid, lanes_per_block * kGroup, 0, stream>>>(p);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int R>
+int blocks_per_sm(int lanes_per_block, int* out) {
+  return static_cast<int>(cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      out, graph_sw_kernel<R>, lanes_per_block * kGroup, 0));
+}
+
 }  // namespace
+
+// Rows per thread of a launch at M read rows; 0 when M is too large.
+extern "C" int sw_warp_rows(int M) { return M > 0 ? rows_for(M) : 0; }
 
 extern "C" int graph_sw_launch(
     const void* ref_codes, const void* col_node, const void* is_start,
@@ -185,8 +150,9 @@ extern "C" int graph_sw_launch(
     const void* lens, const void* vlens, void* scratch, void* out, int L,
     int N, int P, int M, int B, int lanes_per_block, int grid, int gap_open,
     int gap_extend, int match, int mismatch, void* stream) {
-  if (lanes_per_block <= 0 || grid <= 0 || B <= 0 || N <= 0 || P <= 0 ||
-      M <= 0) {
+  if (lanes_per_block <= 0 || lanes_per_block > 32 || grid <= 0 || B <= 0 ||
+      N <= 0 || P <= 0 || M <= 0 || L <= 0 || gap_extend < 0 ||
+      gap_open < gap_extend) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   GraphParams p;
@@ -205,17 +171,28 @@ extern "C" int graph_sw_launch(
   p.P = P;
   p.M = M;
   p.B = B;
-  p.gap_open = gap_open;
-  p.gap_extend = gap_extend;
-  p.match = match;
-  p.mismatch = mismatch;
-  const size_t smem = static_cast<size_t>(M) * lanes_per_block *
-                      (2 * sizeof(int32_t) + sizeof(int8_t));
-  cudaError_t err = cudaFuncSetAttribute(
-      graph_sw_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  graph_sw_kernel<<<grid, lanes_per_block, smem,
-                    static_cast<cudaStream_t>(stream)>>>(p);
-  return static_cast<int>(cudaGetLastError());
+  p.s = {gap_open, gap_extend, match, mismatch};
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (rows_for(M)) {
+#define GRAPH_SW_CASE(R) \
+  case R:                \
+    return launch<R>(p, lanes_per_block, grid, s);
+    SW_WARP_ROW_COUNTS(GRAPH_SW_CASE)
+#undef GRAPH_SW_CASE
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+// CTAs of lanes_per_block warps resident on one SM at M read rows.
+extern "C" int graph_sw_blocks_per_sm(int M, int lanes_per_block, int* out) {
+  switch (M > 0 ? rows_for(M) : 0) {
+#define GRAPH_SW_CASE(R) \
+  case R:                \
+    return blocks_per_sm<R>(lanes_per_block, out);
+    SW_WARP_ROW_COUNTS(GRAPH_SW_CASE)
+#undef GRAPH_SW_CASE
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
 }

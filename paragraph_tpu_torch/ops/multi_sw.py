@@ -43,8 +43,13 @@ COL_BUDGET = 49152
 #: node maxima) may take in one launch; the launch's grid is capped so
 #: that the scratch stays within it, whatever the dispatch's size
 SCRATCH_BUDGET = 1 << 30
-#: lanes (threads) per CTA; a CTA's lanes always share one tile
+#: lanes per tile are a multiple of it; the lanes (threads) of one CTA of
+#: the ablation kernel (tools/kbench2.py), which share one tile
 LANES_PER_BLOCK = 32
+#: lanes (warps) per CTA of the warp-per-lane kernels (paired_sw.cu,
+#: graph_sw.cu); it divides LANES_PER_BLOCK, so a CTA's lanes share one
+#: tile
+WARP_LANES_PER_CTA = 4
 
 
 def _bucket(x: int, m: int) -> int:
@@ -562,11 +567,31 @@ def _check_tables(t: FillTables) -> None:
 
 
 def _tile_grid(N: int, M: int, B: int):
-    """(grid, scratch words) of a multi-event launch: per CTA, saved
-    states [2 (N+1) M] and node maxima [N] per lane, with the grid capped
-    so the scratch stays within SCRATCH_BUDGET."""
+    """(grid, scratch words) of a launch of the thread-per-lane ablation
+    kernel (tools/kbench2.py): per CTA, saved states [2 (N+1) M] and node
+    maxima [N] per lane, with the grid capped so the scratch stays within
+    SCRATCH_BUDGET."""
     cta_words = (2 * (N + 1) * M + N) * LANES_PER_BLOCK
     grid = max(1, min(B // LANES_PER_BLOCK,
+                      SCRATCH_BUDGET // (4 * cta_words)))
+    return grid, grid * cta_words
+
+
+def warp_grid(N: int, M: int, B: int, gap_open: int, gap_extend: int):
+    """(grid, scratch words) of a warp-per-lane launch (paired_sw.cu,
+    graph_sw.cu), after refusing what those kernels do not take. Per lane
+    the scratch holds saved H and E of N nodes over the R * 32 rows of its
+    warp (R rows per thread, the library's choice for M) and N node
+    maxima; the grid is capped so the scratch stays within
+    SCRATCH_BUDGET."""
+    if gap_extend < 0 or gap_open < gap_extend:
+        raise ValueError(f"the fill needs gap_open >= gap_extend >= 0, got "
+                         f"{gap_open}, {gap_extend}")
+    rows = _build.load().sw_warp_rows(M)
+    if rows == 0:
+        raise ValueError(f"{M} read rows exceed what the kernels take")
+    cta_words = (2 * N * rows * 32 + N) * WARP_LANES_PER_CTA
+    grid = max(1, min(-(B // -WARP_LANES_PER_CTA),
                       SCRATCH_BUDGET // (4 * cta_words)))
     return grid, grid * cta_words
 
@@ -592,15 +617,15 @@ def paired_fill(t: FillTables, gap_open: int = 6, gap_extend: int = 1,
     M, Bb = t.base_codes_t.shape
     B = t.col_idx.shape[0]
     TB = B // t.tile_event.shape[0]
-    col_bits, j_bits = _pack_split(t.l_ev, M, match)
-    grid, words = _tile_grid(N, M, B)
+    _pack_split(t.l_ev, M, match)  # refuses what the plain fill refuses
+    grid, words = warp_grid(N, M, B, gap_open, gap_extend)
     out = _build.launch(
         "paired_sw_launch", dev, words, B,
         [t.packed_cols, t.pred_tables, t.tile_col_start, t.tile_col_len,
          t.tile_event, t.base_codes_t, t.base_lens, t.base_vlens,
          t.col_idx, t.col_idx.element_size(), t.flip, t.comp],
-        [B, TB, N, P, M, Bb, LANES_PER_BLOCK, grid, gap_open, gap_extend,
-         match, mismatch, col_bits, j_bits])
+        [B, TB, N, P, M, Bb, WARP_LANES_PER_CTA, grid, gap_open,
+         gap_extend, match, mismatch])
     paired_fill.launches += 1
     return out
 
@@ -679,14 +704,14 @@ def multi_fill(t: MultiFillTables, gap_open: int = 6, gap_extend: int = 1,
     n_ev, N, P = t.pred_tables.shape
     M, B = t.read_codes_t.shape
     TB = B // t.tile_event.shape[0]
-    col_bits, j_bits = _pack_split(t.l_ev, M, match)
-    grid, words = _tile_grid(N, M, B)
+    _pack_split(t.l_ev, M, match)  # refuses what the plain fill refuses
+    grid, words = warp_grid(N, M, B, gap_open, gap_extend)
     out = _build.launch(
         "multi_sw_launch", dev, words, B,
         [t.packed_cols, t.pred_tables, t.tile_col_start, t.tile_col_len,
          t.tile_event, t.read_codes_t, t.lens, t.vlens],
-        [B, TB, N, P, M, LANES_PER_BLOCK, grid, gap_open, gap_extend, match,
-         mismatch, col_bits, j_bits])
+        [B, TB, N, P, M, WARP_LANES_PER_CTA, grid, gap_open, gap_extend,
+         match, mismatch])
     multi_fill.launches += 1
     return out
 

@@ -27,8 +27,8 @@ from ..graph.model import SequenceGraph
 
 from . import _build
 from .batched_sw import GraphArrays, encode_reads
-from .multi_sw import (LANES_PER_BLOCK, SCRATCH_BUDGET, TILE_LANES, _bucket,
-                       _to_device, check_tensors)
+from .multi_sw import (LANES_PER_BLOCK, TILE_LANES, WARP_LANES_PER_CTA,
+                       _bucket, _to_device, check_tensors, warp_grid)
 
 _BIG = 2 ** 30
 
@@ -210,14 +210,12 @@ def graph_fill(t: GraphFillTables, gap_open: int = 6, gap_extend: int = 1,
     _check_tables(t)
     N, P = t.pred_table.shape
     M, B = t.read_codes_t.shape
-    lpb = LANES_PER_BLOCK
-    cta_words = (2 * N * M + N) * lpb
-    grid = max(1, min(-(B // -lpb), SCRATCH_BUDGET // (4 * cta_words)))
+    grid, words = warp_grid(N, M, B, gap_open, gap_extend)
     out = _build.launch(
-        "graph_sw_launch", dev, grid * cta_words, B,
+        "graph_sw_launch", dev, words, B,
         [t.ref_codes, t.col_node, t.is_start, t.is_last, t.pred_table,
          t.read_codes_t, t.lens, t.vlens],
-        [t.ref_codes.shape[0], N, P, M, B, lpb, grid,
+        [t.ref_codes.shape[0], N, P, M, B, WARP_LANES_PER_CTA, grid,
          gap_open, gap_extend, match, mismatch])
     graph_fill.launches += 1
     return out
@@ -232,7 +230,7 @@ class SingleGraphSW:
     device once, at construction.
 
     A dispatch's lanes are padded with 1-base reads to a multiple of
-    ``tile_batch`` (a multiple of the kernel's 32 lanes per CTA); the JAX
+    ``tile_batch`` (a multiple of 32 lanes); the JAX
     scorer's further power-of-two bucket, which only served compile
     reuse, is gone.
     """

@@ -262,3 +262,123 @@ def test_ablation_kernel_matches_plain_fill(name, cuda_device):
                                                               variant))
         if variant in kbench2.EXACT:
             assert torch.equal(got, k2), variant
+
+
+# the warp-per-lane kernels (graph_sw.cu, paired_sw.cu) take R rows per
+# thread from a fixed set of instantiations (ops/csrc/sw_warp.cuh): M at
+# each boundary between two of them, and up to the largest
+ROW_BOUNDARY_MS = [32, 48, 256, 272, 320, 384, 512, 528, 640, 656, 736, 752,
+                   800, 832]
+
+
+def _seq(rng, n):
+    return "".join(rng.choice("ACGT") for _ in range(n))
+
+
+def _long_case(M, seed):
+    """A graph of five nodes of ~M/3 bases and reads of M/2 to M bases
+    drawn from it, with one read of exactly M bases. (The paired fills'
+    packed end-cell word holds 800-row reads over up to 2048 columns.)"""
+    rng = random.Random(seed)
+    seqs = [_seq(rng, max(8, M // 3)) for _ in range(5)]
+    edges = [(0, 1), (0, 2), (1, 2), (2, 3), (1, 3), (3, 4), (2, 4)]
+    g = SequenceGraph([f"n{i}" for i in range(5)], seqs)
+    for f, t in edges:
+        g.add_edge(f, t)
+    reads = [_read_from_graph(rng, seqs, edges,
+                              read_len=rng.randint(M // 2, M))[:M]
+             for _ in range(9)]
+    return g, [r for r in reads if r] + ["".join(seqs)[:M]]
+
+
+def _many_nodes_case(seed, n=60, max_preds=6):
+    """A graph of n short nodes, each with up to max_preds predecessors
+    among the ten before it, and reads drawn from it."""
+    rng = random.Random(seed)
+    seqs = [_seq(rng, rng.randint(1, 12)) for _ in range(n)]
+    edges = []
+    for t in range(1, n):
+        window = range(max(0, t - 10), t)
+        k = min(len(window), rng.randint(1, max_preds))
+        edges.extend((f, t) for f in sorted(rng.sample(window, k)))
+    g = SequenceGraph([f"n{i}" for i in range(n)], seqs)
+    for f, t in edges:
+        g.add_edge(f, t)
+    reads = [_read_from_graph(rng, seqs, edges,
+                              read_len=rng.randint(20, 150))
+             for _ in range(60)]
+    return g, [r for r in reads if r]
+
+
+def _all_kernels_match(g, reads, device, M=None):
+    """K3, K1 and K2 on one graph and its reads, each against its plain
+    fill on the same CUDA tensors; M pads K3's read rows (and K2's, which
+    round them up to a multiple of 32, as K1's do). Returns the three
+    fills' M."""
+    max_len = max(len(r) for r in reads)
+    M3 = M or -(max_len // -32) * 32
+    codes, lens, vlens = encode_reads(reads, M3)
+    t3 = psw.graph_tables_from_numpy(GraphArrays.build(g), codes.T, lens,
+                                     vlens, device)
+    assert torch.equal(psw.graph_fill(t3), psw.graph_fill_reference(t3))
+
+    a, t = _host_tables([g], [reads])
+    t1 = msw.tables_from_numpy(t, a, device)
+    assert torch.equal(msw.paired_fill(t1), msw.paired_fill_reference(t1))
+
+    sw = msw.MultiGraphSW([g, g.reversed()], device=device)
+    t2, _ = sw.tables(0, [reads, reads], pad_to=M3)
+    assert torch.equal(msw.multi_fill(t2), msw.multi_fill_reference(t2))
+    return (t3.read_codes_t.shape[0], t1.base_codes_t.shape[0],
+            t2.read_codes_t.shape[0])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("M", ROW_BOUNDARY_MS)
+def test_kernels_at_row_count_boundaries(M, cuda_device):
+    g, reads = _long_case(M, seed=M)
+    assert _all_kernels_match(g, reads, cuda_device, M) == (
+        M, -(M // -32) * 32, -(M // -32) * 32)
+
+
+@pytest.mark.cuda
+def test_kernels_on_many_nodes_and_predecessors(cuda_device):
+    g, reads = _many_nodes_case(seed=71)
+    assert GraphArrays.build(g).pred_table.shape[1] >= 4
+    assert g.num_nodes == 60
+    _all_kernels_match(g, reads, cuda_device)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_lanes", [1, 3, 5, 33, 130])
+def test_graph_kernel_on_lane_counts_off_the_cta(n_lanes, cuda_device):
+    """Lane counts that are not a multiple of the CTA's lanes, and one
+    lane."""
+    graphs, rpp = _case(seed=72, n_pairs=1, n_reads=(40, 40),
+                        read_lens=(6, 150), max_len=80)
+    reads = (rpp[0] * n_lanes)[:n_lanes]
+    max_len = max(len(r) for r in reads)
+    codes, lens, vlens = encode_reads(reads, -(max_len // -32) * 32)
+    t = psw.graph_tables_from_numpy(GraphArrays.build(graphs[0]), codes.T,
+                                    lens, vlens, cuda_device)
+    assert torch.equal(psw.graph_fill(t), psw.graph_fill_reference(t))
+
+
+@pytest.mark.cuda
+def test_wrappers_refuse_more_rows_than_instantiated(cuda_device):
+    M = 864  # past 26 rows x 32 threads
+    g, reads = _long_case(M, seed=73)
+    codes, lens, vlens = encode_reads(reads, M)
+    t3 = psw.graph_tables_from_numpy(GraphArrays.build(g), codes.T, lens,
+                                     vlens, cuda_device)
+    a, t = _host_tables([g], [reads])
+    t1 = msw.tables_from_numpy(t, a, cuda_device)
+    t2, _ = msw.MultiGraphSW([g], device=cuda_device).tables(0, [reads])
+    before = (psw.graph_fill.launches, msw.paired_fill.launches,
+              msw.multi_fill.launches)
+    for fill, tables in ((psw.graph_fill, t3), (msw.paired_fill, t1),
+                         (msw.multi_fill, t2)):
+        with pytest.raises(ValueError):
+            fill(tables)
+    assert before == (psw.graph_fill.launches, msw.paired_fill.launches,
+                      msw.multi_fill.launches)
