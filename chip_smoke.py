@@ -9,9 +9,10 @@ Phases, in order; any failure exits non-zero before the result line:
    (nvidia-smi); requires torch.cuda.is_available().
 2. build: nvcc builds the kernels from paragraph_tpu_torch/ops/csrc/
    (first use; one nvcc per source, started together), with each
-   kernel's registers and spills from ptxas (a spill in a warp-per-lane
-   kernel fails the run) and the warp-per-lane kernels' resident warps
-   per SM at M=160 and M=800 (cudaOccupancyMaxActiveBlocksPerMultiprocessor).
+   kernel's registers and spills from ptxas (K4's per variant at R=5 and
+   R=26; a spill in any instantiation fails the run), K1's, K2's and
+   K3's resident warps per SM at M=160 and M=800, and each K4 variant's
+   at M=160 (cudaOccupancyMaxActiveBlocksPerMultiprocessor).
 3. K1 kernel vs plain: seeded random cases (N bases, read lengths 6-150,
    empty pairs, pad tiles, reads longer than the graph, int16 and int32
    col_idx), a long-read case (reads of 480-800 bases, M >= 512) and one
@@ -51,16 +52,19 @@ Phases, in order; any failure exits non-zero before the result line:
    seeded cases, unchunked and chunked (col_budget=64), give identical
    outputs; the multi kernel and its plain fill are timed on the
    largest case's tables.
-10. K4 kernel vs plain: the twelve ablation variants of
-   ops/csrc/kbench_sw.cu (paragraph_tpu_torch/tools/kbench2.py) over
+10. K4 kernel vs plain: the twelve ablation variants of K1's column step
+   on its warp-per-lane layout (ops/csrc/kbench_warp.cuh behind
+   ops/csrc/kbench_sw.cu and paragraph_tpu_torch/tools/kbench2.py) over
    phase 3's seeded cases (without many_pairs) as MultiGraphSW lays them
    out, a case of reads with many indels, and the bench dispatch of
    tools/kbench.py (8,192 reads, 32,768 lanes, M=160): each variant's
    kernel == its plain fill, every exact variant == v0 == the multi
    kernel, every inexact variant differs from v0 on some case. Then the
    kernel benchmark path (kbench2.time_variants over 4 code buffers) per
-   TPU kernel body, the multi kernel on the same buffers, and v0's plain
-   fill once.
+   TPU kernel body: each variant's time, its share of the bound and the
+   time PERF.md holds for the thread-per-lane design it replaced; the
+   multi kernel on the same buffers, against opt1_iprof (K2's body); and
+   v0's plain fill once.
 
 Each kernel's launches are counted on its own path, with the counts set
 to 0 just before it and read just after: the paired kernel on phase 4,
@@ -125,6 +129,15 @@ KBENCH_BUFFERS = 4
 OPS_PER_CELL = 8
 INT32_LANES_PER_SM = 64
 HBM_BYTES_PER_S = 3.35e12
+#: ms per bench dispatch of each K4 variant, and of K2, in the
+#: thread-per-lane design that the warp-per-lane one replaced (PERF.md:
+#: v0, opt1 and opt2 from its kernel table, the others from its ladder's
+#: chip_smoke.py column; NVIDIA H100 80GB HBM3, 700.00 W)
+THREAD_PER_LANE_MS = {
+    "v0": 47.856, "nof": 47.570, "notrack": 43.215, "nobranch": 26.196,
+    "hoist": 48.145, "unroll2": 48.412, "hoist_u2": 48.112,
+    "opt1": 26.326, "opt1_iprof": 18.338, "opt1_nof": 25.897,
+    "opt2": 28.489, "opt2_nof": 25.585, "multi_sw": 20.055}
 
 
 def say(msg: str) -> None:
@@ -158,20 +171,26 @@ def phase_device() -> str:
 
 def ptxas_report(log: str):
     """(kernel, registers, spilled bytes) of every entry function in
-    nvcc's -Xptxas -v output, the warp-per-lane kernels labelled by their
-    rows per thread R (graph_sw R, paired_sw R, multi_sw R for the paired
-    kernel with the orientation expansion off)."""
+    nvcc's -Xptxas -v output, labelled by their rows per thread R
+    (graph_sw R, paired_sw R, multi_sw R for the paired kernel with the
+    orientation expansion off, kbench_sw <variant> R)."""
+    from paragraph_tpu_torch.tools.kbench2 import VARIANTS
+
     out, name, spill = [], None, 0
     for line in log.splitlines():
         m = re.search(r"Compiling entry function '(\S+)'", line)
         if m:
             k = re.search(r"(graph_sw|paired_sw)_kernelILi(\d+)E(?:Lb([01])E)?",
                           m.group(1))
-            if k is None:
-                name = re.sub(r"^.*?(kbench_sw_kernel)", r"\1", m.group(1))
-            else:
+            kb = re.search(r"kbench_sw_kernelILi(\d+)ELi(\d+)E", m.group(1))
+            if kb is not None:
+                name = (f"kbench_sw {list(VARIANTS)[int(kb.group(1))]} "
+                        f"R={kb.group(2)}")
+            elif k is not None:
                 kind = "multi_sw" if k.group(3) == "0" else k.group(1)
                 name = f"{kind} R={k.group(2)}"
+            else:
+                name = m.group(1)
             spill = 0
             continue
         m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
@@ -188,6 +207,7 @@ def ptxas_report(log: str):
 def phase_build() -> None:
     from paragraph_tpu_torch.ops import _build
     from paragraph_tpu_torch.ops.multi_sw import WARP_LANES_PER_CTA
+    from paragraph_tpu_torch.tools import kbench2
 
     t0 = time.perf_counter()
     _build.load()
@@ -196,9 +216,22 @@ def phase_build() -> None:
     say(f"[build] {_build.library_path().relative_to(ROOT)}: {nvcc}, "
         f"loaded in {time.perf_counter() - t0:.2f}s")
     report = ptxas_report(_build.build_log)
+    k4 = {}
     for name, regs, spill in report:
-        say(f"[build] {name}: {regs} registers, {spill} bytes spilled")
-    spilled = [r for r in report if r[2] and "kbench" not in r[0]]
+        if name.startswith("kbench_sw "):
+            k4[name] = (regs, spill)
+        else:
+            say(f"[build] {name}: {regs} registers, {spill} bytes spilled")
+    # K4: registers at the bench's R (M=160) and the largest, and the
+    # most any of its 15 instantiations spilled
+    for v in kbench2.VARIANTS:
+        regs = {r: k4.get(f"kbench_sw {v} R={r}", ("?", 0))[0]
+                for r in (5, 26)}
+        spill = max((sp for n, (_, sp) in k4.items()
+                     if n.split()[1] == v), default=0)
+        say(f"[build] kbench_sw {v}: {regs[5]} registers at R=5, "
+            f"{regs[26]} at R=26, {spill} bytes spilled at most")
+    spilled = [r for r in report if r[2]]
     if _build.build_log and (spilled or not report):
         raise AssertionError(f"ptxas spilled or reported nothing: {spilled}")
     # resident lanes (warps) per SM of the warp-per-lane kernels, at the
@@ -208,6 +241,10 @@ def phase_build() -> None:
                  * WARP_LANES_PER_CTA for m in (160, LONG_M)}
         say(f"[build] {kernel}: resident warps (lanes) per SM "
             + ", ".join(f"{w} at M={m}" for m, w in warps.items()))
+    say("[build] kbench_sw: resident warps (lanes) per SM at M=160: "
+        + ", ".join(f"{v} " + str(WARP_LANES_PER_CTA * _build.blocks_per_sm(
+            "kbench_sw", 160, WARP_LANES_PER_CTA, variant=i))
+            for i, v in enumerate(kbench2.VARIANTS)))
 
 
 # ---------------------------------------------------------------- phase 3
@@ -1031,16 +1068,24 @@ def phase_kbench(card: str, clock_hz: float):
         if launches[body] <= 0:
             raise AssertionError(f"kbench path launched no {body} variant")
     for v, t in ms.items():
+        old = THREAD_PER_LANE_MS[v]
         say(f"[kbench] {v} ({kbench2.tpu_body(v)}): {t:.3f} ms per dispatch,"
-            f" {cells / t / 1e6:.2f} Gcells/s issued [{card}]")
-    # the multi kernel (K2) on the same buffers, the rung the ladder ends at
+            f" {cells / t / 1e6:.2f} Gcells/s issued, "
+            f"{100 * bound_ms / t:.1f}% of the bound; thread per lane "
+            f"{old:.3f} ms ({old / t:.2f}x) [{card}]")
+    # the multi kernel (K2) on the same buffers: opt1_iprof is its body
     from paragraph_tpu_torch.ops.multi_sw import multi_fill
 
     multi_fill(bench)
     k2_ms = min(kbench.time_ms(lambda: [multi_fill(b) for b in bufs], 1,
                                bench.device) for _ in range(3)) / len(bufs)
     say(f"[kbench] multi_sw (K2) on the bench buffers: {k2_ms:.3f} ms per "
-        f"dispatch, {cells / k2_ms / 1e6:.2f} Gcells/s issued [{card}]")
+        f"dispatch, {cells / k2_ms / 1e6:.2f} Gcells/s issued, "
+        f"{100 * bound_ms / k2_ms:.1f}% of the bound; thread per lane "
+        f"{THREAD_PER_LANE_MS['multi_sw']:.3f} ms [{card}]")
+    say(f"[kbench] opt1_iprof {ms['opt1_iprof']:.3f} ms against multi_sw "
+        f"{k2_ms:.3f} ms on the same buffers: "
+        f"{100 * (ms['opt1_iprof'] / k2_ms - 1):+.1f}% [{card}]")
     say(f"[kbench] phase 10 took {time.perf_counter() - t_start:.1f}s")
     return [{"name": f"kbench_sw:{body}", "route": "cuda",
              "source": KBENCH_SOURCE, "replaces": replaces,

@@ -117,7 +117,9 @@ def load() -> ctypes.CDLL:
         lib.paired_sw_blocks_per_sm.restype = i
         lib.paired_sw_blocks_per_sm.argtypes = [i, i, i, ip]
         lib.kbench_sw_launch.restype = i
-        lib.kbench_sw_launch.argtypes = [i] + [vp] * 10 + [i] * 13 + [vp]
+        lib.kbench_sw_launch.argtypes = [i] + [vp] * 10 + [i] * 12 + [vp]
+        lib.kbench_sw_blocks_per_sm.restype = i
+        lib.kbench_sw_blocks_per_sm.argtypes = [i, i, i, ip]
         lib.paired_sw_error_string.restype = ctypes.c_char_p
         lib.paired_sw_error_string.argtypes = [i]
         _lib = lib
@@ -128,14 +130,19 @@ def error_string(lib, code: int) -> str:
     return f"{code} ({lib.paired_sw_error_string(code).decode()})"
 
 
-def blocks_per_sm(kernel: str, M: int, lanes_per_block: int) -> int:
+def blocks_per_sm(kernel: str, M: int, lanes_per_block: int,
+                  variant: int = 0) -> int:
     """CTAs of `lanes_per_block` warps that one SM holds at once for a
-    warp-per-lane kernel ("graph_sw", "paired_sw" or "multi_sw") at M read
-    rows (cudaOccupancyMaxActiveBlocksPerMultiprocessor)."""
+    warp-per-lane kernel ("graph_sw", "paired_sw", "multi_sw", or
+    "kbench_sw" with its variant id) at M read rows
+    (cudaOccupancyMaxActiveBlocksPerMultiprocessor)."""
     lib = load()
     n = ctypes.c_int(0)
     if kernel == "graph_sw":
         err = lib.graph_sw_blocks_per_sm(M, lanes_per_block, ctypes.byref(n))
+    elif kernel == "kbench_sw":
+        err = lib.kbench_sw_blocks_per_sm(variant, M, lanes_per_block,
+                                          ctypes.byref(n))
     else:
         err = lib.paired_sw_blocks_per_sm(
             M, lanes_per_block, int(kernel == "paired_sw"), ctypes.byref(n))

@@ -43,12 +43,11 @@ COL_BUDGET = 49152
 #: node maxima) may take in one launch; the launch's grid is capped so
 #: that the scratch stays within it, whatever the dispatch's size
 SCRATCH_BUDGET = 1 << 30
-#: lanes per tile are a multiple of it; the lanes (threads) of one CTA of
-#: the ablation kernel (tools/kbench2.py), which share one tile
+#: lanes per tile are a multiple of it (no kernel takes it as a CTA width)
 LANES_PER_BLOCK = 32
 #: lanes (warps) per CTA of the warp-per-lane kernels (paired_sw.cu,
-#: graph_sw.cu); it divides LANES_PER_BLOCK, so a CTA's lanes share one
-#: tile
+#: graph_sw.cu, kbench_sw.cu); it divides LANES_PER_BLOCK, so a CTA's
+#: lanes share one tile
 WARP_LANES_PER_CTA = 4
 
 
@@ -566,23 +565,12 @@ def _check_tables(t: FillTables) -> None:
         raise ValueError("flip / comp must be [1, B]")
 
 
-def _tile_grid(N: int, M: int, B: int):
-    """(grid, scratch words) of a launch of the thread-per-lane ablation
-    kernel (tools/kbench2.py): per CTA, saved states [2 (N+1) M] and node
-    maxima [N] per lane, with the grid capped so the scratch stays within
-    SCRATCH_BUDGET."""
-    cta_words = (2 * (N + 1) * M + N) * LANES_PER_BLOCK
-    grid = max(1, min(B // LANES_PER_BLOCK,
-                      SCRATCH_BUDGET // (4 * cta_words)))
-    return grid, grid * cta_words
-
-
 def warp_grid(N: int, M: int, B: int, gap_open: int, gap_extend: int):
     """(grid, scratch words) of a warp-per-lane launch (paired_sw.cu,
-    graph_sw.cu), after refusing what those kernels do not take. Per lane
-    the scratch holds saved H and E of N nodes over the R * 32 rows of its
-    warp (R rows per thread, the library's choice for M) and N node
-    maxima; the grid is capped so the scratch stays within
+    graph_sw.cu, kbench_sw.cu), after refusing what those kernels do not
+    take. Per lane the scratch holds saved H and E of N nodes over the
+    R * 32 rows of its warp (R rows per thread, the library's choice for
+    M) and N node maxima; the grid is capped so the scratch stays within
     SCRATCH_BUDGET."""
     if gap_extend < 0 or gap_open < gap_extend:
         raise ValueError(f"the fill needs gap_open >= gap_extend >= 0, got "

@@ -1,13 +1,18 @@
 """Ablation harness of the multi-event graph-SW fill: the twelve variants of
-its column loop as a hand-written CUDA kernel (``ops/csrc/kbench_sw.cu``).
+its column loop as a hand-written CUDA kernel (``ops/csrc/kbench_sw.cu``
+on ``ops/csrc/kbench_warp.cuh``).
 
-Counterpart of the JAX package's ``tools/kbench2.py``. Each variant is a
-structural copy of the fill's column loop. The exact ones (``EXACT``)
-give the multi-event fill's outputs; the others (nof, opt1_nof,
-opt2_nof: no F; notrack: no end-cell tracking; nobranch: no node
-seeding or saving) are wrong on purpose and exist to attribute time.
-The variants run on K2's tables (``MultiFillTables``: read codes
-already expanded into their orientation).
+Counterpart of the JAX package's ``tools/kbench2.py``. Each variant is
+the paired fill's column step on its warp-per-lane layout (a warp per
+lane, each thread's rows in registers, as ``ops/csrc/sw_warp.cuh``) with
+one or more parts of the TPU harness's v0 put back or taken away, so the
+time between two variants prices one part of that step (the source
+header gives each knob's meaning). The exact ones (``EXACT``) give the
+multi-event fill's outputs; the others (nof, opt1_nof, opt2_nof: no F;
+notrack: no end-cell tracking; nobranch: no node seeding or saving) are
+wrong on purpose and exist to attribute time. The variants run on K2's
+tables (``MultiFillTables``: read codes already expanded into their
+orientation).
 
     python -m paragraph_tpu_torch.tools.kbench2 [--device cuda]
         [--variants v0,opt2,...] [--k 4] [--reads 8192] [--readlen 150]
@@ -30,10 +35,10 @@ import json
 import sys
 
 from ..ops import _build
-from ..ops.multi_sw import (LANES_PER_BLOCK, FillTables, MultiFillTables,
-                            _bucket, _fill_reference, _pack_split,
-                            _tile_grid, check_multi_tables,
-                            expand_orientations)
+from ..ops.multi_sw import (WARP_LANES_PER_CTA, FillTables,
+                            MultiFillTables, _bucket, _fill_reference,
+                            _pack_split, check_multi_tables,
+                            expand_orientations, warp_grid)
 from . import kbench
 
 #: the variants, in the order of the kernel's variant ids, with the JAX
@@ -104,9 +109,11 @@ def kbench_fill_reference(t: MultiFillTables, variant: str):
 def kbench_fill(t: MultiFillTables, variant: str):
     """A variant's fill: [4, B] int32 on t's device.
 
-    On CUDA tensors this launches the variant's instantiation of
-    ops/csrc/kbench_sw.cu on the current stream and raises on anything it
-    cannot take; on CPU tensors it runs kbench_fill_reference.
+    On CUDA tensors this launches the variant's kernel of
+    ops/csrc/kbench_sw.cu on the current stream, sized by warp_grid, and
+    raises on anything it cannot take (more read rows than the kernels
+    take, gap_open < gap_extend, an odd column count for the unroll
+    variants); on CPU tensors it runs kbench_fill_reference.
     ``kbench_fill.launches`` counts kernel launches."""
     dev = t.device
     if dev.type == "cpu":
@@ -118,16 +125,17 @@ def kbench_fill(t: MultiFillTables, variant: str):
     n_ev, N, P = t.pred_tables.shape
     M, B = t.read_codes_t.shape
     TB = B // t.tile_event.shape[0]
-    col_bits, j_bits = _pack_split(t.l_ev, M, SCORING["match"])
-    grid, words = _tile_grid(N, M, B)
+    col_bits, _ = _pack_split(t.l_ev, M, SCORING["match"])
+    grid, words = warp_grid(N, M, B, SCORING["gap_open"],
+                            SCORING["gap_extend"])
     out = _build.launch(
         "kbench_sw_launch", dev, words, B,
         [list(VARIANTS).index(variant), t.packed_cols, t.pred_tables,
          t.tile_col_start, t.tile_col_len, t.tile_event, t.read_codes_t,
          t.lens, t.vlens],
-        [B, TB, N, P, M, LANES_PER_BLOCK, grid, SCORING["gap_open"],
+        [B, TB, N, P, M, WARP_LANES_PER_CTA, grid, SCORING["gap_open"],
          SCORING["gap_extend"], SCORING["match"], SCORING["mismatch"],
-         col_bits, j_bits])
+         col_bits])
     kbench_fill.launches += 1
     return out
 

@@ -382,3 +382,56 @@ def test_wrappers_refuse_more_rows_than_instantiated(cuda_device):
             fill(tables)
     assert before == (psw.graph_fill.launches, msw.paired_fill.launches,
                       msw.multi_fill.launches)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("M", ROW_BOUNDARY_MS)
+def test_ablation_kernel_at_row_count_boundaries(M, cuda_device):
+    """Every K4 variant (ops/csrc/kbench_warp.cuh, one instantiation per
+    row count) against its plain fill at each boundary between two row
+    counts; the exact ones equal the multi kernel."""
+    from paragraph_tpu_torch.tools import kbench2
+
+    g, reads = _long_case(M, seed=M)
+    sw = msw.MultiGraphSW([g, g.reversed()], device=cuda_device)
+    tables, _ = sw.tables(0, [reads, reads], pad_to=M)
+    assert tables.read_codes_t.shape[0] == -(M // -32) * 32
+    k2 = msw.multi_fill(tables)
+    before = kbench2.kbench_fill.launches
+    outs = kbench2.check_variants(tables, kbench2.VARIANTS)
+    assert kbench2.kbench_fill.launches == before + len(kbench2.VARIANTS)
+    for variant, (got, want) in outs.items():
+        assert torch.equal(got, want), variant
+        if variant in kbench2.EXACT:
+            assert torch.equal(got, k2), variant
+
+
+@pytest.mark.cuda
+def test_ablation_wrapper_refuses_what_the_kernel_does_not_take(
+        cuda_device, monkeypatch):
+    """More rows than the largest instantiation, gap_open < gap_extend,
+    and an odd column count for the unroll variants: each raises before
+    any launch."""
+    from paragraph_tpu_torch.tools import kbench2
+
+    g, reads = _long_case(864, seed=74)  # past 26 rows x 32 threads
+    long_tables, _ = msw.MultiGraphSW([g], device=cuda_device).tables(
+        0, [reads])
+    graphs, rpe = _case(seed=75)
+    sw = msw.MultiGraphSW(graphs, device=cuda_device)
+    tables, _ = sw.tables(0, [rpe[e] for e in sw.chunk_events[0]])
+    odd = dataclasses.replace(tables, tile_col_len=tables.tile_col_len - 1)
+    before = kbench2.kbench_fill.launches
+    for variant in kbench2.VARIANTS:
+        with pytest.raises(ValueError):
+            kbench2.kbench_fill(long_tables, variant)
+    for variant in ("unroll2", "hoist_u2"):
+        with pytest.raises(ValueError, match="multiple"):
+            kbench2.kbench_fill(odd, variant)
+    monkeypatch.setitem(kbench2.SCORING, "gap_open", 0)
+    with pytest.raises(ValueError, match="gap_open"):
+        kbench2.kbench_fill(tables, "v0")
+    assert kbench2.kbench_fill.launches == before
+    monkeypatch.undo()
+    assert torch.equal(kbench2.kbench_fill(odd, "v0"),
+                       kbench2.kbench_fill_reference(odd, "v0"))

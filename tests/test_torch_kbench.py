@@ -150,6 +150,16 @@ def test_reference_matches_jax_harness(name, case, jax_outputs):
     np.testing.assert_array_equal(got.numpy(), jax_outputs[name])
 
 
+@pytest.mark.parametrize("name", list(kbench2.VARIANTS))
+def test_warp_layout_matches_jax_harness(name, case, jax_outputs):
+    """The CUDA kernel's warp-per-lane decomposition of each variant
+    (emulated in tests/test_torch_kbench_warp.py) == the JAX harness."""
+    from test_torch_kbench_warp import kbench_warp_fill
+
+    got = kbench_warp_fill(case[0], name)
+    np.testing.assert_array_equal(got.numpy(), jax_outputs[name])
+
+
 @pytest.mark.parametrize("name", kbench2.EXACT)
 def test_exact_variants_are_the_multi_event_fill(name, case):
     tables = case[0]
