@@ -9,17 +9,21 @@ Phases, in order; any failure exits non-zero before the result line:
    (nvidia-smi); requires torch.cuda.is_available().
 2. build: nvcc builds the kernels from paragraph_tpu_torch/ops/csrc/
    (first use; one nvcc per source, started together), with each
-   kernel's registers and spills from ptxas (K4's per variant at R=5 and
-   R=26; a spill in any instantiation fails the run), K1's, K2's and
-   K3's resident warps per SM at M=160 and M=800, and each K4 variant's
-   at M=160 (cudaOccupancyMaxActiveBlocksPerMultiprocessor).
+   kernel's registers and spills from ptxas (the row-band kernels of
+   K1, K2 and K3 included; K4's per variant at R=5 and R=26; a spill in
+   any instantiation fails the run), K1's, K2's and K3's resident warps
+   per SM at M=160, M=800 and M=2048 (the band kernels), and each K4
+   variant's at M=160 (cudaOccupancyMaxActiveBlocksPerMultiprocessor).
 3. K1 kernel vs plain: seeded random cases (N bases, read lengths 6-150,
    empty pairs, pad tiles, reads longer than the graph, int16 and int32
-   col_idx), a long-read case (reads of 480-800 bases, M >= 512) and one
-   full-size dispatch (the first dispatch of phase 4's first round) go
-   through the paired kernel and the plain PyTorch fill on the same CUDA
-   tensors; the [4, B] outputs must be identical (tolerance 0: integer DP
-   outputs). Times both at the full-size shape, with the bound.
+   col_idx), a long-read case (reads of 480-800 bases, M >= 512), a
+   very-long-read case (reads of 833-2048 bases, M = 2048: the row-band
+   kernel, on graphs of <= 256 columns, where the packed end-cell word
+   holds 2048 rows) and one full-size dispatch (the first dispatch of
+   phase 4's first round) go through the paired kernel and the plain
+   PyTorch fill on the same CUDA tensors; the [4, B] outputs must be
+   identical (tolerance 0: integer DP outputs). Times both at the
+   full-size shape and on the very long reads, with the bound.
 4. main path: the port's multigrmpy with device="cuda" on the repo's
    end-to-end workload (tests/tools/make_workload.py: 1000 mixed
    DEL/INS/DUP/INV/DEL+SNP events, 30x, 150 bp pairs, one sample, seed
@@ -36,10 +40,12 @@ Phases, in order; any failure exits non-zero before the result line:
    lengths 6-150, reads longer than the graph, a single read, lane
    counts that are not multiples of 32), a case whose scores overflow
    the JAX scorer's packed word (match=100000), phase 3's long-read
-   graphs, and one full-size dispatch: the largest-graph event of the
-   first 200, its extracted reads repeated to 10,000, as the forward
-   batch of 20,000 orientations. Outputs identical; times both, with the
-   bound, at that size and at the event's own read count.
+   graphs, very long reads (833-2048 bases) on those graphs (the
+   row-band kernel, timed with its bound), and one full-size dispatch:
+   the largest-graph event of the first 200, its extracted reads
+   repeated to 10,000, as the forward batch of 20,000 orientations.
+   Outputs identical; times both, with the bound, at that size and at
+   the event's own read count.
 7. per-event path: the first 200 events through the port's run_grmpy
    with batch_events=False on cuda (the single-graph kernel, twice per
    (event, sample) with reads; no paired launch), then genotypes.json.gz
@@ -65,12 +71,23 @@ Phases, in order; any failure exits non-zero before the result line:
    time PERF.md holds for the thread-per-lane design it replaced; the
    multi kernel on the same buffers, against opt1_iprof (K2's body); and
    v0's plain fill once.
+11. population: the port's multigrmpy on cuda with gt_engine="auto" over
+   bench_population.py's default workload (make_workload: 150 events, 8
+   samples, 30x, seed 17; generated into smoke_workload_pop/ in a
+   subprocess started before phase 2, waited for before phase 3's full
+   dispatch), so the float32 device genotyping engine runs in the
+   pipelined path's device_genotype stage. Requires paired kernel
+   launches, device-engine jobs and that stage, and confident calls
+   (GQ >= 10) equal to a gt_engine="host" run's on the same workload;
+   reports SV x sample/s, the stage seconds and the confident-call
+   accuracy against the planted genotypes
+   (bench_population.score_population).
 
 Each kernel's launches are counted on its own path, with the counts set
-to 0 just before it and read just after: the paired kernel on phase 4,
-the single-graph kernel on phase 7, the multi kernel on phase 9's cuda
-runs, the ablation kernel on phase 10's timing of each TPU body's
-variants. The process refuses to import jax and the JAX package. The
+to 0 just before it and read just after: the paired kernel on phase 4
+(and on phase 11's run, reported there), the single-graph kernel on
+phase 7, the multi kernel on phase 9's cuda runs, the ablation kernel on
+phase 10's timing of each TPU body's variants. The process refuses to import jax and the JAX package. The
 last three lines are the card's name and power limit, then {"kernels":
 [...]} (paired_sw, graph_sw, multi_sw and one kbench_sw entry per TPU
 kernel body of tools/kbench2.py, each with its bound: the larger of the
@@ -90,6 +107,11 @@ import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 WORKLOAD = os.path.join(ROOT, "smoke_workload")
+POP_WORKLOAD = os.path.join(ROOT, "smoke_workload_pop")
+#: bench_population.py's defaults: events, samples, seed
+POP_EVENTS = 150
+POP_SAMPLES = 8
+POP_SEED = 17
 N_EVENTS = 1000
 DEPTH = 30
 SEED = 1
@@ -108,6 +130,9 @@ KBENCH_SOURCE = "paragraph_tpu_torch/ops/csrc/kbench_sw.cu"
 #: kernels)
 LONG_READS = (480, 800)
 LONG_M = 800
+#: the very-long-read cases of phases 3 and 6: reads of 833-2048 bases,
+#: past one warp's 832 rows, so the kernels run in row bands
+VERY_LONG_READS = (833, 2048)
 #: the TPU kernel bodies of tools/kbench2.py and the exact variant of each
 #: that phase 10 reports
 KBENCH_BODIES = {"make_kernel": ("tools/kbench2.py:35", "v0"),
@@ -173,7 +198,8 @@ def ptxas_report(log: str):
     """(kernel, registers, spilled bytes) of every entry function in
     nvcc's -Xptxas -v output, labelled by their rows per thread R
     (graph_sw R, paired_sw R, multi_sw R for the paired kernel with the
-    orientation expansion off, kbench_sw <variant> R)."""
+    orientation expansion off, "band R=26" for their row-band kernels,
+    kbench_sw <variant> R)."""
     from paragraph_tpu_torch.tools.kbench2 import VARIANTS
 
     out, name, spill = [], None, 0
@@ -183,7 +209,12 @@ def ptxas_report(log: str):
             k = re.search(r"(graph_sw|paired_sw)_kernelILi(\d+)E(?:Lb([01])E)?",
                           m.group(1))
             kb = re.search(r"kbench_sw_kernelILi(\d+)ELi(\d+)E", m.group(1))
-            if kb is not None:
+            band = re.search(r"(graph_sw|paired_sw)_band_kernel(?:ILb([01])E)?",
+                             m.group(1))
+            if band is not None:
+                kind = "multi_sw" if band.group(2) == "0" else band.group(1)
+                name = f"{kind} band R=26"
+            elif kb is not None:
                 name = (f"kbench_sw {list(VARIANTS)[int(kb.group(1))]} "
                         f"R={kb.group(2)}")
             elif k is not None:
@@ -235,10 +266,12 @@ def phase_build() -> None:
     if _build.build_log and (spilled or not report):
         raise AssertionError(f"ptxas spilled or reported nothing: {spilled}")
     # resident lanes (warps) per SM of the warp-per-lane kernels, at the
-    # main path's M and the long-read cases' largest
+    # main path's M, the long-read cases' largest and the very long
+    # reads' (the band kernels)
     for kernel in ("graph_sw", "paired_sw", "multi_sw"):
         warps = {m: _build.blocks_per_sm(kernel, m, WARP_LANES_PER_CTA)
-                 * WARP_LANES_PER_CTA for m in (160, LONG_M)}
+                 * WARP_LANES_PER_CTA
+                 for m in (160, LONG_M, VERY_LONG_READS[1])}
         say(f"[build] {kernel}: resident warps (lanes) per SM "
             + ", ".join(f"{w} at M={m}" for m, w in warps.items()))
     say("[build] kbench_sw: resident warps (lanes) per SM at M=160: "
@@ -351,6 +384,42 @@ def long_read_case(seed: int):
     return graphs, rpp
 
 
+def _very_long_reads(rng, graph, n):
+    """n reads of VERY_LONG_READS bases, the first of the longest: a
+    stretch of a random path through `graph` between random flanks."""
+    node, path = 0, graph.node_seq(0)
+    while graph.successors(node):
+        node = rng.choice(graph.successors(node))
+        path += graph.node_seq(node)
+    lo, hi = VERY_LONG_READS
+
+    def flank(k):
+        return "".join(rng.choice("ACGT") for _ in range(k))
+
+    reads = []
+    for i in range(n):
+        total = hi if i == 0 else rng.randint(lo, hi)
+        k = rng.randint(min(40, len(path)), min(len(path), total))
+        a = rng.randint(0, len(path) - k)
+        pre = rng.randint(0, total - k)
+        reads.append(flank(pre) + path[a:a + k] + flank(total - pre - k))
+    return reads
+
+
+def very_long_read_case(seed: int, short_graphs: bool):
+    """(graphs, reads per pair) with reads of VERY_LONG_READS bases: on
+    long_read_case's graphs, or (short_graphs) on two graphs of at most
+    250 columns, where the paired kernel's packed end-cell word holds
+    2048 rows."""
+    rng = random.Random(seed)
+    if short_graphs:
+        graphs = [_make_graph(*_random_graph(rng, 5, 50)) for _ in range(2)]
+    else:
+        graphs = long_read_case(seed)[0]
+    return graphs, [_very_long_reads(rng, g, rng.randint(20, 40))
+                    for g in graphs]
+
+
 def _case_tables(graphs, rpp, device):
     """FillTables of every chunk of a PairedGraphSW over the case."""
     from paragraph_tpu_torch.ops.multi_sw import (
@@ -433,7 +502,7 @@ def fill_bound(tables, clock_hz: float):
     return bytes_ms, "bytes"
 
 
-def phase_kernel_cases(card: str):
+def phase_kernel_cases(card: str, clock_hz: float):
     import dataclasses
 
     import torch
@@ -463,6 +532,21 @@ def phase_kernel_cases(card: str):
                                         tables, f"long reads[{ci}]"))
         say(f"[kernel] case long reads chunk {ci}: "
             f"{tables.col_idx.shape[0]} lanes, M={t['m']}: kernel == plain")
+    for ci, (tables, t) in enumerate(_case_tables(
+            *very_long_read_case(7, short_graphs=True), "cuda")):
+        if t["m"] != VERY_LONG_READS[1]:
+            raise AssertionError(f"very-long-read case has M={t['m']}")
+        max_err = max(max_err, _compare(paired_fill, paired_fill_reference,
+                                        tables, f"very long reads[{ci}]"))
+        kernel_ms, plain_ms = _time_fill(paired_fill, paired_fill_reference,
+                                         tables, 5)
+        bound_ms, bound_by = fill_bound(tables, clock_hz)
+        say(f"[kernel] case very long reads chunk {ci} (row bands): "
+            f"T={tables.tile_event.shape[0]} B={tables.col_idx.shape[0]} "
+            f"lanes M={t['m']} l_ev={t['l_ev']}: kernel == plain; kernel "
+            f"{kernel_ms:.3f} ms, bound {bound_ms:.4f} ms ({bound_by}, "
+            f"{100 * bound_ms / kernel_ms:.1f}% of it), plain "
+            f"{plain_ms:.1f} ms [{card}]")
     return max_err
 
 
@@ -760,6 +844,20 @@ def phase_graph_kernel(card: str, opts, descs, clock_hz: float):
             raise AssertionError(f"long-read case has M={M} < 512")
         max_err = max(max_err, compare(tables, f"long reads ({B})"))
         say(f"[graph] case long reads: kernel == plain at {B} lanes, M={M}")
+    for g, reads in zip(*very_long_read_case(7, short_graphs=False)):
+        tables = _graph_tables(g, reads)
+        M, B = tables.read_codes_t.shape
+        if M != VERY_LONG_READS[1]:
+            raise AssertionError(f"very-long-read case has M={M}")
+        max_err = max(max_err, compare(tables, f"very long reads ({B})"))
+        kernel_ms, plain_ms = _time_fill(graph_fill, graph_fill_reference,
+                                         tables, 5)
+        bound_ms, bound_by = fill_bound(tables, clock_hz)
+        say(f"[graph] case very long reads (row bands): L="
+            f"{tables.ref_codes.shape[0]} B={B} lanes M={M}: kernel == "
+            f"plain; kernel {kernel_ms:.3f} ms, bound {bound_ms:.4f} ms "
+            f"({bound_by}, {100 * bound_ms / kernel_ms:.1f}% of it), plain "
+            f"{plain_ms:.1f} ms [{card}]")
 
     # full size: the largest graph of the per-event run, its reads
     # repeated to FULL_READS, forward batch (fwd + revcomp)
@@ -1095,6 +1193,175 @@ def phase_kbench(card: str, clock_hz: float):
             for body, (replaces, variant) in KBENCH_BODIES.items()]
 
 
+# --------------------------------------------------------------- phase 11
+
+
+def _pop_events(wl: str):
+    """The planted events of a complete population workload in `wl`, or
+    None."""
+    truth = os.path.join(wl, "truth.json")
+    if not os.path.isfile(truth):
+        return None
+    with open(truth) as f:
+        events = json.load(f)
+    if len(events) != POP_EVENTS or len(events[0].get("gts", {})) \
+            != POP_SAMPLES:
+        return None
+    return events
+
+
+def start_pop_workload(wl: str):
+    """Start generating phase 11's workload into `wl` in a subprocess
+    (make_workload uses the JAX package's BGZF reader); returns the
+    process, or None when a complete one is there."""
+    if _pop_events(wl) is not None:
+        return None
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join(
+        [ROOT] + [p for p in [env.get("PYTHONPATH")] if p])
+    code = ("import sys; sys.path.insert(0, sys.argv[1]); "
+            "from make_workload import generate; "
+            "generate(sys.argv[2], n_events=int(sys.argv[3]), "
+            "seed=int(sys.argv[4]), n_samples=int(sys.argv[5]))")
+    return subprocess.Popen(
+        [sys.executable, "-c", code, os.path.join(ROOT, "tests", "tools"),
+         wl, str(POP_EVENTS), str(POP_SEED), str(POP_SAMPLES)],
+        cwd=ROOT, env=env, stdout=subprocess.DEVNULL)
+
+
+def finish_pop_workload(proc, wl: str):
+    """Wait for start_pop_workload's process; the workload's events."""
+    if proc is not None:
+        t0 = time.perf_counter()
+        rc = proc.wait(timeout=900)
+        if rc != 0:
+            raise RuntimeError(f"population workload generation: rc {rc}")
+        say(f"[workload] population workload ({POP_EVENTS} events x "
+            f"{POP_SAMPLES} samples) ready; waited "
+            f"{time.perf_counter() - t0:.1f}s for it")
+    events = _pop_events(wl)
+    if events is None:
+        raise RuntimeError(f"no complete population workload in {wl}")
+    return events
+
+
+def _confident_calls_match(host_json: str, device_json: str) -> int:
+    """Raise unless every confident host call (sample genotypes with GQ >=
+    10 and PASS, breakpoint genotypes with GQ >= 10) has the same GT in
+    the device engine's run, with equal breakpoint counts; returns the
+    number of calls checked."""
+    with gzip.open(host_json, "rt") as f:
+        host = json.load(f)
+    with gzip.open(device_json, "rt") as f:
+        device = json.load(f)
+    if len(host) != len(device):
+        raise AssertionError("host and device runs differ in events")
+    n = 0
+    for rec_h, rec_d in zip(host, device):
+        for name, sh in rec_h["samples"].items():
+            sd = rec_d["samples"][name]
+            gt_h, gt_d = sh["gt"], sd["gt"]
+            if gt_h.get("GQ", 0) >= 10 and "PASS" in gt_h.get("filters", []):
+                if gt_d["GT"] != gt_h["GT"]:
+                    raise AssertionError(f"{name}: host {gt_h} device {gt_d}")
+                n += 1
+            for bp, bp_h in sh.get("breakpoints", {}).items():
+                bp_d = sd["breakpoints"][bp]
+                if bp_d["counts"] != bp_h["counts"]:
+                    raise AssertionError(f"{name} {bp}: counts differ")
+                if bp_h["gt"].get("GQ", 0) >= 10:
+                    if bp_d["gt"]["GT"] != bp_h["gt"]["GT"]:
+                        raise AssertionError(
+                            f"{name} {bp}: host {bp_h['gt']} device "
+                            f"{bp_d['gt']}")
+                    n += 1
+    return n
+
+
+def phase_population(card: str, wl: str, events):
+    """multigrmpy over the population workload with gt_engine="auto" (the
+    device engine) and "host"; returns the paired kernel's launches in
+    the auto run."""
+    from paragraph_tpu_torch.ops.multi_sw import paired_fill
+    from paragraph_tpu_torch.pipeline.multigrmpy import run
+
+    sys.path.insert(0, ROOT)
+    from bench_population import score_population
+
+    samples = sorted(events[0]["gts"])
+    outs, stats, secs = {}, {}, {}
+    launches = 0
+    for engine in ("auto", "host"):
+        opts = _options(wl, os.path.join(wl, f"out_{engine}"))
+        opts.gt_engine = engine
+        stats[engine] = {}
+        paired_fill.launches = 0
+        t0 = time.perf_counter()
+        outs[engine] = run(opts, device="cuda", kernel_stats=stats[engine])
+        secs[engine] = time.perf_counter() - t0
+        if engine == "auto":
+            launches = paired_fill.launches
+        n_sv = len(events) * len(samples)
+        stage = {k: round(v, 3)
+                 for k, v in sorted(stats[engine].get("stage_s", {}).items())}
+        say(f"[population] {len(events)} events x {len(samples)} samples, "
+            f"gt_engine={engine}: {secs[engine]:.2f}s = "
+            f"{n_sv / secs[engine]:.2f} SV x sample/s; device engine jobs "
+            f"{stats[engine].get('gt_device_jobs', 0)} in "
+            f"{stats[engine].get('gt_device_call_s', 0.0):.4f}s of model "
+            f"calls; stage seconds {stage} [{card}]")
+    auto = stats["auto"]
+    if launches <= 0 or auto.get("gt_device_jobs", 0) <= 0 \
+            or "device_genotype" not in auto.get("stage_s", {}):
+        raise AssertionError(f"population run: paired launches {launches}, "
+                             f"stats {auto}")
+    if "gt_device_jobs" in stats["host"]:
+        raise AssertionError("gt_engine=host ran the device engine")
+    n_checked = _confident_calls_match(outs["host"]["genotypes_json"],
+                                       outs["auto"]["genotypes_json"])
+    if n_checked <= 0:
+        raise AssertionError("no confident host call to compare")
+    acc = {}
+    for engine in ("auto", "host"):
+        n_conf, n_ok = score_population(outs[engine]["genotypes_vcf"],
+                                        events, samples)
+        acc[engine] = (n_conf, n_ok)
+        say(f"[population] gt_engine={engine}: confident calls {n_conf}, "
+            f"correct {n_ok} ({n_ok / max(n_conf, 1):.4f})")
+    say(f"[population] device engine == host engine on {n_checked} "
+        f"confident calls; paired_sw launches={launches}, device_genotype "
+        f"{auto['stage_s']['device_genotype']:.3f}s [{card}]")
+    if acc["auto"][0] <= 0:
+        raise AssertionError("no confident call in the population run")
+    say(f"[population] the model's call on {auto['gt_device_jobs']} jobs: "
+        f"{auto['gt_device_call_s']:.4f}s in the run (the process's first), "
+        f"{_warm_model_call_s(auto['gt_device_jobs']) * 1e3:.3f} ms warm "
+        f"[{card}]")
+    return launches
+
+
+def _warm_model_call_s(n: int) -> float:
+    """Seconds of one sharded_population_genotyping call on n seeded
+    biallelic diploid jobs on the card, after one untimed call."""
+    import numpy as np
+
+    from paragraph_tpu_torch.genotyping.batched import model_from_parameters
+    from paragraph_tpu_torch.genotyping.parameters import (
+        GenotypingParameters)
+    from paragraph_tpu_torch.parallel.mesh import (
+        sharded_population_genotyping)
+
+    rng = np.random.default_rng(0)
+    model = model_from_parameters(GenotypingParameters(["REF", "ALT"], 2),
+                                  "cuda")
+    args = (rng.poisson(12, (n, 2)), np.full(n, 30.0), np.full(n, 150.0),
+            np.full(n, 12.25), rng.random(n) < 0.5, model)
+    sharded_population_genotyping("cuda", *args)
+    t0 = time.perf_counter()
+    sharded_population_genotyping("cuda", *args)
+    return time.perf_counter() - t0
+
+
 def main() -> int:
     import logging
 
@@ -1105,12 +1372,20 @@ def main() -> int:
     logging.basicConfig(
         level=logging.INFO, stream=sys.stderr,
         format="[%(asctime)s] [%(name)s] [%(levelname)s] %(message)s")
+    t_start = time.perf_counter()
     card = phase_device()
-    phase_build()
-    clock_hz = sm_clock_hz()
-    say(f"[device] max SM clock {clock_hz / 1e6:.0f} MHz")
-    err = phase_kernel_cases(card)
-    events = ensure_workload(WORKLOAD)
+    pop_proc = start_pop_workload(POP_WORKLOAD)
+    try:
+        phase_build()
+        clock_hz = sm_clock_hz()
+        say(f"[device] max SM clock {clock_hz / 1e6:.0f} MHz")
+        err = phase_kernel_cases(card, clock_hz)
+        events = ensure_workload(WORKLOAD)
+        pop_events = finish_pop_workload(pop_proc, POP_WORKLOAD)
+    finally:
+        if pop_proc is not None and pop_proc.poll() is None:
+            pop_proc.kill()
+            pop_proc.wait()
     err_full, kernel_ms, plain_ms, k1_tables = phase_full_dispatch(
         card, WORKLOAD, clock_hz)
     launches = phase_main_path(card, WORKLOAD, events)
@@ -1122,6 +1397,8 @@ def main() -> int:
     phase_paragraph_cli(card, WORKLOAD, opts, descs[:CLI_EVENTS])
     m_err, m_launches, m_ms, m_plain_ms, k2_tables = phase_multi_kernel(card)
     k4 = phase_kbench(card, clock_hz)
+    phase_population(card, POP_WORKLOAD, pop_events)
+    say(f"[smoke] phases 1-11 took {time.perf_counter() - t_start:.1f}s")
 
     import torch
 

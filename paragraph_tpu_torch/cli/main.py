@@ -104,8 +104,9 @@ def cmd_multigrmpy(argv):
     p.add_argument("--genotyping-engine", default="auto",
                    choices=["auto", "host", "device"],
                    help="auto (default): host, or device for >=4 samples "
-                        "and >=8 events; the device engine is not ported "
-                        "yet, so a run that selects it stops with an error")
+                        "and >=8 events; device genotypes the whole run in "
+                        "float32 on --device (batch and pipelined paths; "
+                        "per-event runs genotype on the host)")
     _add_device_arg(p)
     _add_logging_args(p)
     args = p.parse_args(argv)

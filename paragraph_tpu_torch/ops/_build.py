@@ -104,13 +104,15 @@ def load() -> ctypes.CDLL:
         vp, i = ctypes.c_void_p, ctypes.c_int
         lib.paired_sw_launch.restype = i
         lib.paired_sw_launch.argtypes = (
-            [vp] * 9 + [i] + [vp] * 4 + [i] * 12 + [vp])
+            [vp] * 9 + [i] + [vp] * 4 + [i] * 13 + [vp])
         lib.multi_sw_launch.restype = i
-        lib.multi_sw_launch.argtypes = [vp] * 10 + [i] * 11 + [vp]
+        lib.multi_sw_launch.argtypes = [vp] * 10 + [i] * 12 + [vp]
         lib.graph_sw_launch.restype = i
         lib.graph_sw_launch.argtypes = [vp] * 10 + [i] * 11 + [vp]
         lib.sw_warp_rows.restype = i
         lib.sw_warp_rows.argtypes = [i]
+        lib.sw_warp_lane_words.restype = ctypes.c_longlong
+        lib.sw_warp_lane_words.argtypes = [i, i, i]
         ip = ctypes.POINTER(ctypes.c_int)
         lib.graph_sw_blocks_per_sm.restype = i
         lib.graph_sw_blocks_per_sm.argtypes = [i, i, ip]

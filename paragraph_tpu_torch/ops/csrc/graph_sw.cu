@@ -36,6 +36,12 @@
 // lanes_per_block warps; the grid is capped so the scratch stays within
 // the wrapper's budget, and each warp strides over lanes; warps past B
 // idle.
+//
+// Reads longer than 832 rows (M > kBandRows) take graph_sw_band_kernel:
+// the same column step over bands of 832 rows (sw_warp.cuh, band_lane),
+// with two boundary words per column and band carried in per-lane scratch.
+// There is no packed word, so any M is taken. Launches with M <= 832 keep
+// graph_sw_kernel.
 
 #include "sw_warp.cuh"
 
@@ -126,6 +132,46 @@ __global__ void graph_sw_kernel(const GraphParams p) {
   }
 }
 
+// Reads longer than kBandRows: graph_sw_kernel's lane, with band_lane over
+// the graph's L columns in place of the column loop.
+__global__ void graph_sw_band_kernel(const GraphParams p) {
+  const int t = threadIdx.x % kGroup;
+  const int warps = blockDim.x / kGroup;
+  const int w = threadIdx.x / kGroup;
+  int32_t* scratch =
+      p.scratch + (static_cast<size_t>(blockIdx.x) * warps + w) *
+                      band_lane_words(p.N, p.L);
+  const int32_t* node_max =
+      scratch + 2 * static_cast<size_t>(p.N) * kBandRows;
+
+  for (int lane = blockIdx.x * warps + w; lane < p.B;
+       lane += gridDim.x * warps) {
+    const int len = p.lens[lane];
+    int best, best_col, best_row;
+    band_lane(
+        t, p.M, len, p.vlens[lane], p.L, p.N, p.P, p.L, p.s, scratch,
+        [&](int c) {
+          return Col{__ldg(p.ref_codes + c), __ldg(p.col_node + c),
+                     __ldg(p.is_start + c) != 0, __ldg(p.is_last + c) != 0};
+        },
+        [&](int nid) { return p.pred_table + nid * p.P; },
+        [&](int j) {
+          return static_cast<int>(
+              p.read_codes_t[static_cast<size_t>(j) * p.B + lane]);
+        },
+        best, best_col, best_row);
+    const int n_top = count_top(node_max, p.N, best, t);
+    if (t == 0) {
+      const bool zero = best == 0;
+      p.out[lane] = best;
+      p.out[p.B + lane] = zero ? -1 : best_col;
+      p.out[2 * p.B + lane] = zero ? 0 : min(best_row, len - 1);
+      p.out[3 * p.B + lane] = n_top > 1;
+    }
+    __syncwarp();
+  }
+}
+
 template <int R>
 int launch(const GraphParams& p, int lanes_per_block, int grid,
            cudaStream_t stream) {
@@ -141,8 +187,22 @@ int blocks_per_sm(int lanes_per_block, int* out) {
 
 }  // namespace
 
-// Rows per thread of a launch at M read rows; 0 when M is too large.
+// Rows per thread of a launch at M read rows; 0 past the largest, where
+// the launchers take the band kernels.
 extern "C" int sw_warp_rows(int M) { return M > 0 ? rows_for(M) : 0; }
+
+// Scratch words of one lane of a K1, K2 or K3 launch at N node slots and M
+// read rows; on the band path (M > kBandRows) over at most band_cols
+// columns per lane.
+extern "C" long long sw_warp_lane_words(int N, int M, int band_cols) {
+  if (N <= 0 || M <= 0) return 0;
+  if (M > kBandRows) {
+    return band_cols > 0 ? static_cast<long long>(
+                               band_lane_words(N, band_cols))
+                         : 0;
+  }
+  return static_cast<long long>(lane_words(N, rows_for(M)));
+}
 
 extern "C" int graph_sw_launch(
     const void* ref_codes, const void* col_node, const void* is_start,
@@ -173,6 +233,10 @@ extern "C" int graph_sw_launch(
   p.B = B;
   p.s = {gap_open, gap_extend, match, mismatch};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (M > kBandRows) {
+    graph_sw_band_kernel<<<grid, lanes_per_block * kGroup, 0, s>>>(p);
+    return static_cast<int>(cudaGetLastError());
+  }
   switch (rows_for(M)) {
 #define GRAPH_SW_CASE(R) \
   case R:                \
@@ -186,6 +250,10 @@ extern "C" int graph_sw_launch(
 
 // CTAs of lanes_per_block warps resident on one SM at M read rows.
 extern "C" int graph_sw_blocks_per_sm(int M, int lanes_per_block, int* out) {
+  if (M > kBandRows) {
+    return static_cast<int>(cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        out, graph_sw_band_kernel, lanes_per_block * kGroup, 0));
+  }
   switch (M > 0 ? rows_for(M) : 0) {
 #define GRAPH_SW_CASE(R) \
   case R:                \

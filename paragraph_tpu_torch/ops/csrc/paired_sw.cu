@@ -40,6 +40,12 @@
 // one tile, so the column word and predecessor ids are broadcast loads.
 // Each warp strides over lanes; the grid is capped so the per-lane scratch
 // stays within the wrapper's budget.
+//
+// Reads longer than 832 rows (M > kBandRows) take paired_sw_band_kernel:
+// the same column step over bands of 832 rows (sw_warp.cuh, band_lane),
+// with two boundary words per column and band carried in per-lane scratch
+// over at most band_cols columns (the wrapper's bound on a tile's column
+// count). Launches with M <= 832 keep paired_sw_kernel.
 
 #include "sw_warp.cuh"
 
@@ -62,6 +68,7 @@ struct Params {
   int32_t* scratch;               // [grid][warps][lane_words]
   int32_t* out;                   // [4][B]
   int B, TB, N, P, M, Bb, col_idx_bytes;
+  int band_cols;                  // band path: columns per tile at most
   Scoring s;
 };
 
@@ -145,6 +152,62 @@ __global__ void paired_sw_kernel(const Params p) {
   }
 }
 
+// Reads longer than kBandRows: paired_sw_kernel's lane, with band_lane
+// over the tile's columns in place of the column loop.
+template <bool kExpand>
+__global__ void paired_sw_band_kernel(const Params p) {
+  const int t = threadIdx.x % kGroup;
+  const int warps = blockDim.x / kGroup;
+  const int w = threadIdx.x / kGroup;
+  const int N = p.N, P = p.P;
+  int32_t* scratch =
+      p.scratch + (static_cast<size_t>(blockIdx.x) * warps + w) *
+                      band_lane_words(N, p.band_cols);
+  const int32_t* node_max = scratch + 2 * static_cast<size_t>(N) * kBandRows;
+
+  for (int lane = blockIdx.x * warps + w; lane < p.B;
+       lane += gridDim.x * warps) {
+    const int tile = lane / p.TB;
+    const int c0 = p.tile_col_start[tile];
+    int bcol = lane;
+    if (kExpand) {
+      bcol = p.col_idx_bytes == 2
+                 ? static_cast<const int16_t*>(p.col_idx)[lane]
+                 : static_cast<const int32_t*>(p.col_idx)[lane];
+    }
+    const int len = p.base_lens[bcol];
+    const bool fl = kExpand && p.flip[lane] != 0;
+    const bool cp = kExpand && p.comp[lane] != 0;
+    const int32_t* pred_ev =
+        p.pred_tables + static_cast<size_t>(p.tile_event[tile]) * N * P;
+    int best, best_col, best_row;
+    band_lane(
+        t, p.M, len, p.base_vlens[bcol], p.tile_col_len[tile], N, P,
+        p.band_cols, p.s, scratch,
+        [&](int c) {
+          const int pc = __ldg(p.packed_cols + c0 + c);
+          return Col{pc & 7, (pc >> 3) & 0xFFF, ((pc >> 15) & 1) != 0,
+                     ((pc >> 16) & 1) != 0};
+        },
+        [&](int nid) { return pred_ev + nid * P; },
+        [&](int j) {
+          const int src = (fl && j < len) ? len - 1 - j : j;
+          const int x = p.base_codes_t[static_cast<size_t>(src) * p.Bb + bcol];
+          return (cp && x < 4) ? 3 - x : x;
+        },
+        best, best_col, best_row);
+    const int n_top = count_top(node_max, N, best, t);
+    if (t == 0) {
+      const bool zero = best == 0;
+      p.out[lane] = best;
+      p.out[p.B + lane] = zero ? -1 : c0 + best_col;
+      p.out[2 * p.B + lane] = zero ? 0 : min(best_row, len - 1);
+      p.out[3 * p.B + lane] = n_top > 1;
+    }
+    __syncwarp();
+  }
+}
+
 template <int R, bool kExpand>
 int launch(const Params& p, int lanes_per_block, int grid,
            cudaStream_t stream) {
@@ -156,6 +219,12 @@ int launch(const Params& p, int lanes_per_block, int grid,
 template <bool kExpand>
 int launch_rows(const Params& p, int lanes_per_block, int grid,
                 cudaStream_t stream) {
+  if (p.M > kBandRows) {
+    if (p.band_cols <= 0) return static_cast<int>(cudaErrorInvalidValue);
+    paired_sw_band_kernel<kExpand>
+        <<<grid, lanes_per_block * kGroup, 0, stream>>>(p);
+    return static_cast<int>(cudaGetLastError());
+  }
   switch (rows_for(p.M)) {
 #define PAIRED_SW_CASE(R) \
   case R:                 \
@@ -171,8 +240,8 @@ void set_common(Params& p, const void* packed_cols, const void* pred_tables,
                 const void* tile_col_start, const void* tile_col_len,
                 const void* tile_event, const void* codes_t, const void* lens,
                 const void* vlens, void* scratch, void* out, int B, int TB,
-                int N, int P, int M, int Bb, int gap_open, int gap_extend,
-                int match, int mismatch) {
+                int N, int P, int M, int Bb, int band_cols, int gap_open,
+                int gap_extend, int match, int mismatch) {
   p.packed_cols = static_cast<const int32_t*>(packed_cols);
   p.pred_tables = static_cast<const int32_t*>(pred_tables);
   p.tile_col_start = static_cast<const int32_t*>(tile_col_start);
@@ -193,6 +262,7 @@ void set_common(Params& p, const void* packed_cols, const void* pred_tables,
   p.M = M;
   p.Bb = Bb;
   p.col_idx_bytes = 4;
+  p.band_cols = band_cols;
   p.s = {gap_open, gap_extend, match, mismatch};
 }
 
@@ -211,8 +281,9 @@ extern "C" int paired_sw_launch(
     const void* tile_event, const void* base_codes_t, const void* base_lens,
     const void* base_vlens, const void* col_idx, int col_idx_bytes,
     const void* flip, const void* comp, void* scratch, void* out, int B,
-    int TB, int N, int P, int M, int Bb, int lanes_per_block, int grid,
-    int gap_open, int gap_extend, int match, int mismatch, void* stream) {
+    int TB, int N, int P, int M, int Bb, int band_cols, int lanes_per_block,
+    int grid, int gap_open, int gap_extend, int match, int mismatch,
+    void* stream) {
   if (bad_shape(B, TB, N, P, M, lanes_per_block, grid, gap_open,
                 gap_extend) ||
       (col_idx_bytes != 2 && col_idx_bytes != 4)) {
@@ -221,7 +292,8 @@ extern "C" int paired_sw_launch(
   Params p;
   set_common(p, packed_cols, pred_tables, tile_col_start, tile_col_len,
              tile_event, base_codes_t, base_lens, base_vlens, scratch, out, B,
-             TB, N, P, M, Bb, gap_open, gap_extend, match, mismatch);
+             TB, N, P, M, Bb, band_cols, gap_open, gap_extend, match,
+             mismatch);
   p.col_idx = col_idx;
   p.col_idx_bytes = col_idx_bytes;
   p.flip = static_cast<const int8_t*>(flip);
@@ -237,8 +309,8 @@ extern "C" int multi_sw_launch(
     const void* tile_col_start, const void* tile_col_len,
     const void* tile_event, const void* read_codes_t, const void* lens,
     const void* vlens, void* scratch, void* out, int B, int TB, int N, int P,
-    int M, int lanes_per_block, int grid, int gap_open, int gap_extend,
-    int match, int mismatch, void* stream) {
+    int M, int band_cols, int lanes_per_block, int grid, int gap_open,
+    int gap_extend, int match, int mismatch, void* stream) {
   if (bad_shape(B, TB, N, P, M, lanes_per_block, grid, gap_open,
                 gap_extend)) {
     return static_cast<int>(cudaErrorInvalidValue);
@@ -246,15 +318,22 @@ extern "C" int multi_sw_launch(
   Params p;
   set_common(p, packed_cols, pred_tables, tile_col_start, tile_col_len,
              tile_event, read_codes_t, lens, vlens, scratch, out, B, TB, N, P,
-             M, B, gap_open, gap_extend, match, mismatch);
+             M, B, band_cols, gap_open, gap_extend, match, mismatch);
   return launch_rows<false>(p, lanes_per_block, grid,
                             static_cast<cudaStream_t>(stream));
 }
 
 // CTAs of lanes_per_block warps resident on one SM at M read rows, for the
-// paired kernel (expand != 0) or the multi kernel.
+// paired kernel (expand != 0) or the multi kernel; past kBandRows, for its
+// band kernel.
 extern "C" int paired_sw_blocks_per_sm(int M, int lanes_per_block,
                                        int expand, int* out) {
+  if (M > kBandRows) {
+    return static_cast<int>(cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        out,
+        expand ? paired_sw_band_kernel<true> : paired_sw_band_kernel<false>,
+        lanes_per_block * kGroup, 0));
+  }
   switch (M > 0 ? rows_for(M) : 0) {
 #define PAIRED_SW_CASE(R)                                            \
   case R:                                                            \

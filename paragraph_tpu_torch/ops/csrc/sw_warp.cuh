@@ -35,6 +35,19 @@
 // node's first column are coalesced. Slot N, the zero state, is never
 // stored or read: H and E are never negative, so seeding starts from 0 and
 // skips it. Then node maxima [N].
+//
+// Reads longer than the largest R covers (M > 832 rows) take the row-band
+// path (band_lane below): a lane's rows are cut into bands of kBandR * 32
+// = 832 rows, and each band sweeps all of the lane's columns with the same
+// column_step at R = kBandR. A row depends only on the rows above it, so
+// band b + 1 needs from band b only, per column, the H entering the column
+// at band b's last row (thread 0's diagonal, in place of 0) and the F
+// carry A after that row (thread 0's incoming A, in place of kNeg, joined
+// into its run before the scan); E is row-local and each band seeds its
+// own saved states. Band b writes these two words per column into one half
+// of a per-lane ping-pong buffer while it reads band b - 1's from the
+// other. Node maxima take the max over bands; the end cell is merged over
+// bands in reduce_end's order with global rows.
 #pragma once
 
 #include <climits>
@@ -117,14 +130,17 @@ __device__ __forceinline__ int rows_below(int bound, int t) {
 // One column of one lane: h holds the previous column's H on entry (or
 // the seeded state at a node's first column) and this column's H on exit;
 // e likewise. col_max takes the max over stripe rows, node_run over real
-// rows.
-template <int R>
-__device__ __forceinline__ void column_step(int (&h)[R], int (&e)[R],
-                                            ColBits cb, const Scoring& s,
-                                            int t, int n_stripe, int n_real,
-                                            int& col_max, int& node_run) {
+// rows. Thread 0's diagonal is up0 and the A entering its first row a0
+// (a lane's first rows: 0 and kNeg); with kCarry, a0 also enters the F
+// scan. Returns, in every thread, the A after its last row.
+template <int R, bool kCarry = false>
+__device__ __forceinline__ int column_step(int (&h)[R], int (&e)[R],
+                                           ColBits cb, const Scoring& s,
+                                           int t, int n_stripe, int n_real,
+                                           int& col_max, int& node_run,
+                                           int up0 = 0, int a0 = kNeg) {
   int up = __shfl_up_sync(kFull, h[R - 1], 1);
-  if (t == 0) up = 0;
+  if (t == 0) up = up0;
   // hp in place, last row first: row r reads row r - 1's previous H
 #pragma unroll
   for (int r = R - 1; r >= 0; --r) {
@@ -138,9 +154,11 @@ __device__ __forceinline__ void column_step(int (&h)[R], int (&e)[R],
   int run = h[0];
 #pragma unroll
   for (int r = 1; r < R; ++r) run = __viaddmax_s32(run, -s.gap_extend, h[r]);
+  const int step = R * s.gap_extend;
+  // the carry from the rows above thread 0, decayed over its R rows
+  if (kCarry && t == 0) run = __viaddmax_s32(a0, -step, run);
   // inclusive scan over the threads, thread s < t decayed by (t - s) R gapE;
   // threads t < d get their own value back, which the max leaves as it is
-  const int step = R * s.gap_extend;
 #pragma unroll
   for (int d = 1; d < kGroup; d <<= 1) {
     const int o = __shfl_up_sync(kFull, run, d);
@@ -148,7 +166,7 @@ __device__ __forceinline__ void column_step(int (&h)[R], int (&e)[R],
   }
   // A entering this thread's first row
   int a = __shfl_up_sync(kFull, run, 1);
-  if (t == 0) a = kNeg;
+  if (t == 0) a = a0;
 #pragma unroll
   for (int r = 0; r < R; ++r) {
     const int hp = h[r];
@@ -159,6 +177,7 @@ __device__ __forceinline__ void column_step(int (&h)[R], int (&e)[R],
     if (r < n_stripe) col_max = max(col_max, hn);
     if (r < n_real) node_run = max(node_run, hn);
   }
+  return a;
 }
 
 // The first of a thread's stripe rows whose H equals v.
@@ -200,8 +219,9 @@ __device__ __forceinline__ void seed(int (&h)[R], int (&e)[R],
 }
 
 // A node's last column: its H and E saved, its maximum over real rows
-// stored by thread 0.
-template <int R>
+// stored by thread 0 (with kMerge, the max of it and the stored one: the
+// row bands' node maxima).
+template <int R, bool kMerge = false>
 __device__ __forceinline__ void save(const int (&h)[R], const int (&e)[R],
                                      int nid, int node_run, int32_t* saved_h,
                                      int32_t* saved_e, int32_t* node_max,
@@ -215,7 +235,7 @@ __device__ __forceinline__ void save(const int (&h)[R], const int (&e)[R],
     se[r * kGroup] = e[r];
   }
   const int m = __reduce_max_sync(kFull, node_run);
-  if (t == 0) node_max[nid] = m;
+  if (t == 0) node_max[nid] = kMerge ? max(node_max[nid], m) : m;
 }
 
 // The warp's end cell: highest score, then lowest column, then lowest
@@ -253,6 +273,103 @@ __device__ __forceinline__ void zero_node_max(int32_t* node_max, int N,
 // Scratch words of one lane: saved H and E of N nodes, then N maxima.
 __host__ __device__ inline size_t lane_words(int N, int R) {
   return 2 * static_cast<size_t>(N) * R * kGroup + N;
+}
+
+// ---------------------------------------------------------------- row bands
+
+// Rows per thread of a band, and read rows per band.
+constexpr int kBandR = 26;
+constexpr int kBandRows = kBandR * kGroup;
+
+// Scratch words of one lane on the band path over at most L columns: one
+// band's saved states and the N node maxima, then the ping-pong boundary
+// buffers, [2][L] diagonals and [2][L] carries.
+__host__ __device__ inline size_t band_lane_words(int N, int L) {
+  return lane_words(N, kBandR) + 4 * static_cast<size_t>(L);
+}
+
+// One column of the lane's column stream.
+struct Col {
+  int ref, nid;
+  bool start, last;
+};
+
+// The fill of one lane whose reads are longer than kBandRows rows, band by
+// band, over clen <= L columns. col_at(c) gives column c, preds_of(nid) the
+// node's P predecessor ids, code_at(j) the code of read row j < M. On exit
+// every thread holds the lane's end cell (best, best_col, best_row, global
+// row) and the scratch's node maxima cover all bands.
+template <class ColAt, class PredsOf, class CodeAt>
+__device__ __forceinline__ void band_lane(
+    int t, int M, int len, int vlen, int clen, int N, int P, int L,
+    const Scoring& s, int32_t* scratch, ColAt col_at, PredsOf preds_of,
+    CodeAt code_at, int& best, int& best_col, int& best_row) {
+  constexpr int R = kBandR;
+  int32_t* saved_h = scratch;
+  int32_t* saved_e = saved_h + static_cast<size_t>(N) * kBandRows;
+  int32_t* node_max = saved_e + static_cast<size_t>(N) * kBandRows;
+  int32_t* diag_buf = node_max + N;
+  int32_t* carry_buf = diag_buf + 2 * static_cast<size_t>(L);
+  zero_node_max(node_max, N, t);
+  best = 0;
+  best_col = 0;
+  best_row = 0;
+  const int n_bands = (M + kBandRows - 1) / kBandRows;
+  for (int b = 0; b < n_bands; ++b) {
+    const int off = b * kBandRows;
+    const bool carry_in = b > 0, carry_out = b + 1 < n_bands;
+    const int32_t* diag_in = diag_buf + ((b + 1) & 1) * L;
+    const int32_t* a_in = carry_buf + ((b + 1) & 1) * L;
+    int32_t* diag_out = diag_buf + (b & 1) * L;
+    int32_t* a_out = carry_buf + (b & 1) * L;
+    const int n_stripe = rows_below<R>(min(vlen, M) - off, t);
+    const int n_real = rows_below<R>(min(len, M) - off, t);
+    const CodeBits codes =
+        load_codes<R>(t, M - off, [&](int j) { return code_at(off + j); });
+    int h[R], e[R];
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      h[r] = 0;
+      e[r] = 0;
+    }
+    int bb = 0, bc = 0, br = 0;
+    int node_run = 0;
+    for (int c = 0; c < clen; ++c) {
+      const Col col = col_at(c);
+      if (col.start) {
+        seed<R>(h, e, preds_of(col.nid), P, N, saved_h, saved_e, t);
+        node_run = 0;
+      }
+      int up0 = 0, a0 = kNeg;
+      if (carry_in && t == 0) {
+        up0 = diag_in[c];
+        a0 = a_in[c];
+      }
+      if (carry_out && t == kGroup - 1) diag_out[c] = h[R - 1];
+      int col_max = 0;
+      const int a_end =
+          column_step<R, true>(h, e, column_bits(codes, col.ref), s, t,
+                               n_stripe, n_real, col_max, node_run, up0, a0);
+      if (carry_out && t == kGroup - 1) a_out[c] = a_end;
+      if (col_max > bb) {
+        bb = col_max;
+        bc = c;
+        br = off + t * R + first_row<R>(h, col_max, n_stripe);
+      }
+      if (col.last) {
+        save<R, true>(h, e, col.nid, node_run, saved_h, saved_e, node_max, t);
+      }
+    }
+    reduce_end(bb, bc, br);
+    if (bb > best || (bb == best && (bc < best_col ||
+                                     (bc == best_col && br < best_row)))) {
+      best = bb;
+      best_col = bc;
+      best_row = br;
+    }
+    // band b's boundary words and node maxima before band b + 1 reads them
+    __syncwarp();
+  }
 }
 
 }  // namespace sw_warp

@@ -565,23 +565,43 @@ def _check_tables(t: FillTables) -> None:
         raise ValueError("flip / comp must be [1, B]")
 
 
-def warp_grid(N: int, M: int, B: int, gap_open: int, gap_extend: int):
+def warp_grid(N: int, M: int, B: int, gap_open: int, gap_extend: int,
+              band_cols: int = 0):
     """(grid, scratch words) of a warp-per-lane launch (paired_sw.cu,
     graph_sw.cu, kbench_sw.cu), after refusing what those kernels do not
     take. Per lane the scratch holds saved H and E of N nodes over the
     R * 32 rows of its warp (R rows per thread, the library's choice for
-    M) and N node maxima; the grid is capped so the scratch stays within
-    SCRATCH_BUDGET."""
+    M) and N node maxima. Past the largest R (M > 832) the fill runs in
+    row bands: one band's saved states, the node maxima and two boundary
+    words per column and band, for at most `band_cols` columns per lane;
+    without `band_cols` (the ablation kernel) such M is refused. The grid
+    is capped so the scratch stays within SCRATCH_BUDGET."""
     if gap_extend < 0 or gap_open < gap_extend:
         raise ValueError(f"the fill needs gap_open >= gap_extend >= 0, got "
                          f"{gap_open}, {gap_extend}")
-    rows = _build.load().sw_warp_rows(M)
-    if rows == 0:
-        raise ValueError(f"{M} read rows exceed what the kernels take")
-    cta_words = (2 * N * rows * 32 + N) * WARP_LANES_PER_CTA
+    lib = _build.load()
+    if lib.sw_warp_rows(M) == 0 and band_cols <= 0:
+        raise ValueError(f"{M} read rows exceed what the kernel takes")
+    lane_words = lib.sw_warp_lane_words(N, M, band_cols)
+    if lane_words <= 0:
+        raise ValueError(f"no warp-per-lane launch for N={N}, M={M}")
+    cta_words = lane_words * WARP_LANES_PER_CTA
     grid = max(1, min(-(B // -WARP_LANES_PER_CTA),
                       SCRATCH_BUDGET // (4 * cta_words)))
     return grid, grid * cta_words
+
+
+def band_cols_of(t, M: int) -> int:
+    """Columns per lane for the row bands of the multi-event kernels:
+    t.l_ev, which bounds every tile's column count (checked here, where
+    it costs a device sync, only when M takes the bands); 0 below."""
+    if _build.load().sw_warp_rows(M):
+        return 0
+    longest = int(t.tile_col_len.max())
+    if longest > t.l_ev:
+        raise ValueError(f"a tile spans {longest} columns, more than "
+                         f"l_ev={t.l_ev}")
+    return t.l_ev
 
 
 def paired_fill(t: FillTables, gap_open: int = 6, gap_extend: int = 1,
@@ -606,13 +626,14 @@ def paired_fill(t: FillTables, gap_open: int = 6, gap_extend: int = 1,
     B = t.col_idx.shape[0]
     TB = B // t.tile_event.shape[0]
     _pack_split(t.l_ev, M, match)  # refuses what the plain fill refuses
-    grid, words = warp_grid(N, M, B, gap_open, gap_extend)
+    band_cols = band_cols_of(t, M)
+    grid, words = warp_grid(N, M, B, gap_open, gap_extend, band_cols)
     out = _build.launch(
         "paired_sw_launch", dev, words, B,
         [t.packed_cols, t.pred_tables, t.tile_col_start, t.tile_col_len,
          t.tile_event, t.base_codes_t, t.base_lens, t.base_vlens,
          t.col_idx, t.col_idx.element_size(), t.flip, t.comp],
-        [B, TB, N, P, M, Bb, WARP_LANES_PER_CTA, grid, gap_open,
+        [B, TB, N, P, M, Bb, band_cols, WARP_LANES_PER_CTA, grid, gap_open,
          gap_extend, match, mismatch])
     paired_fill.launches += 1
     return out
@@ -693,13 +714,14 @@ def multi_fill(t: MultiFillTables, gap_open: int = 6, gap_extend: int = 1,
     M, B = t.read_codes_t.shape
     TB = B // t.tile_event.shape[0]
     _pack_split(t.l_ev, M, match)  # refuses what the plain fill refuses
-    grid, words = warp_grid(N, M, B, gap_open, gap_extend)
+    band_cols = band_cols_of(t, M)
+    grid, words = warp_grid(N, M, B, gap_open, gap_extend, band_cols)
     out = _build.launch(
         "multi_sw_launch", dev, words, B,
         [t.packed_cols, t.pred_tables, t.tile_col_start, t.tile_col_len,
          t.tile_event, t.read_codes_t, t.lens, t.vlens],
-        [B, TB, N, P, M, WARP_LANES_PER_CTA, grid, gap_open, gap_extend,
-         match, mismatch])
+        [B, TB, N, P, M, band_cols, WARP_LANES_PER_CTA, grid, gap_open,
+         gap_extend, match, mismatch])
     multi_fill.launches += 1
     return out
 

@@ -210,13 +210,16 @@ def graph_fill(t: GraphFillTables, gap_open: int = 6, gap_extend: int = 1,
     _check_tables(t)
     N, P = t.pred_table.shape
     M, B = t.read_codes_t.shape
-    grid, words = warp_grid(N, M, B, gap_open, gap_extend)
+    L = t.ref_codes.shape[0]
+    # past 832 read rows the kernel runs in row bands over all L columns:
+    # any M is taken
+    grid, words = warp_grid(N, M, B, gap_open, gap_extend, band_cols=L)
     out = _build.launch(
         "graph_sw_launch", dev, words, B,
         [t.ref_codes, t.col_node, t.is_start, t.is_last, t.pred_table,
          t.read_codes_t, t.lens, t.vlens],
-        [t.ref_codes.shape[0], N, P, M, B, WARP_LANES_PER_CTA, grid,
-         gap_open, gap_extend, match, mismatch])
+        [L, N, P, M, B, WARP_LANES_PER_CTA, grid, gap_open, gap_extend,
+         match, mismatch])
     graph_fill.launches += 1
     return out
 

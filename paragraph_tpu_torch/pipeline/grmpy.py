@@ -3,8 +3,10 @@
 Counterpart of ``align_single_sample``, ``align_samples_batched`` and
 ``run_grmpy`` in ``paragraph_tpu/pipeline/grmpy.py`` (grmpy::Workflow,
 AlignSamples.cpp, CountAndGenotype.cpp). Scoring runs on the caller's
-device through the port; a failure raises. ``GrmpyParameters``, the
-alignment dump and the float64 host genotyping are copied unchanged.
+device through the port, and so does the float32 device genotyping
+engine where the batch path selects it; a failure raises.
+``GrmpyParameters``, the alignment dump and the float64 host genotyping
+are copied unchanged.
 """
 from __future__ import annotations
 
@@ -57,8 +59,9 @@ class GrmpyParameters:
         self.infer_read_haplotypes = infer_read_haplotypes
         self.progress = progress
         #: "host" = float64 parity engines per event;
-        #: "device" = the device population engine, not ported: a run
-        #: that resolves to it raises NotImplementedError
+        #: "device" = the float32 population engine: one call on the
+        #: run's device genotypes every (event x sample x breakpoint) of
+        #: the run (genotyping/device_engine.py)
         self.gt_engine = gt_engine
 
 
@@ -155,16 +158,13 @@ def _make_paragraph_parameters(parameters: GrmpyParameters,
 
 def resolve_gt_engine(parameters: GrmpyParameters, n_samples: int,
                       n_events: int) -> str:
-    """gt_engine with "auto" resolved by the JAX package's rule (device
-    for >= 4 samples and >= 8 events). The port genotypes on the host
-    only: a run that resolves to "device" raises."""
+    """gt_engine with "auto" resolved by the JAX package's rule: the
+    device engine for >= 4 samples and >= 8 events, else the host. Only
+    the batch and pipelined paths read it; the per-event path genotypes
+    on the host whatever the engine."""
     engine = parameters.gt_engine
     if engine == "auto":
         engine = "device" if n_samples >= 4 and n_events >= 8 else "host"
-    if engine == "device":
-        raise NotImplementedError(
-            "the float32 device genotyping engine is not ported yet "
-            "(ROADMAP queue A item 6); run with gt_engine='host'")
     return engine
 
 
@@ -275,13 +275,14 @@ def run_grmpy(graph_descs: List[dict], reference_path: str,
     non-default aligners). With >= 8 events and threads != 1 the
     pipelined orchestrator runs (pipeline/parallel_grmpy.py). Otherwise
     each (event x sample) scores its own reads through two single-graph
-    scorers. Every scorer's stats are added into `kernel_stats` when
-    given.
+    scorers. The batch and pipelined paths genotype with the engine that
+    resolve_gt_engine picks; the per-event path on the host. Every
+    scorer's stats, and the device engine's (`gt_device_jobs`,
+    `gt_device_call_s`), are added into `kernel_stats` when given.
     """
     device = resolve_device(device)
     if parameters is None:
         parameters = GrmpyParameters()
-    resolve_gt_engine(parameters, len(manifest), len(graph_descs))
 
     if batch_events is None:
         batch_events = (
@@ -328,6 +329,20 @@ def run_grmpy(graph_descs: List[dict], reference_path: str,
                 by_graph[key] = []
                 order.append((key, gd))
             by_graph[key].append(s)
+        if resolve_gt_engine(parameters, len(manifest),
+                             len(graph_descs)) == "device":
+            # count every event on the host, then genotype all (event x
+            # sample x breakpoint) jobs in one float32 call on the device
+            from ..genotyping.device_engine import genotype_events_on_device
+
+            genotypers = [make_event_genotyper(
+                gd, reference_path, genotyping_parameters, by_graph[key])
+                for key, gd in order]
+            genotype_events_on_device(genotypers, device, kernel_stats)
+            for gtr in genotypers:
+                results.append(gtr.get_genotypes())
+                report_progress(len(results))
+            return results
         for key, gd in order:
             results.append(count_and_genotype(
                 gd, reference_path, genotyping_parameters, by_graph[key]))

@@ -57,7 +57,8 @@ class MultigrmpyOptions:
     # path
     validate_schemas: bool = False
     # "host" = float64 parity engines; "device" = the float32 device
-    # engine, not ported yet (resolving to it raises)
+    # engine on the run's device (genotyping/device_engine.py); "auto" =
+    # device for >= 4 samples and >= 8 events
     gt_engine: str = "auto"
 
 

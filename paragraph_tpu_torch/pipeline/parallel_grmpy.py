@@ -11,8 +11,11 @@ cut into rounds of events and three resources are overlapped:
 
 Scoring happens only in the parent, on the caller's device. Workers are
 spawned with the card hidden (``CUDA_VISIBLE_DEVICES=""``), never score,
-and raise if a pair that needs scores arrives without them. Output is
-event-ordered and identical to the batch path.
+and raise if a pair that needs scores arrives without them. With the
+device genotyping engine the workers return each event's samples instead
+of genotyping them, and the parent genotypes the whole run in one
+``device_genotype`` stage on its device (genotyping/device_engine.py).
+Output is event-ordered and identical to the batch path.
 """
 from __future__ import annotations
 
@@ -95,14 +98,17 @@ def _extract_event(gi: int, graph_desc: dict, reference_path: str,
 def _analyze_event(gi: int, graph_desc: dict, reference_path: str,
                    genotyping_parameters: Optional[dict],
                    parameters, per_sample: List[tuple],
-                   bam_specs: List[tuple], max_reads: int):
+                   bam_specs: List[tuple], max_reads: int,
+                   defer_genotyping: bool = False):
     """Per-event host analysis + genotyping for all samples.
 
     per_sample: (SampleInfo, has_reads, precomputed scores);
     has_reads=False means the sample carries pre-aligned alignment_data.
     Reads come from this worker's extraction cache; a cache miss (e.g. a
     worker restart) re-extracts locally. Returns the event's genotyping
-    result dict (CountAndGenotype.cpp).
+    result dict (CountAndGenotype.cpp), or with `defer_genotyping` the
+    event's samples with their alignment data, for the parent's device
+    engine.
     """
     from ..reads.read import UNMAPPED
     from .grmpy import _make_paragraph_parameters, count_and_genotype
@@ -145,6 +151,8 @@ def _analyze_event(gi: int, graph_desc: dict, reference_path: str,
                 output.pop(key, None)
             sample.alignment_data = output
         samples.append(sample)
+    if defer_genotyping:
+        return samples
     return count_and_genotype(graph_desc, reference_path,
                               genotyping_parameters, samples, graph=graph)
 
@@ -156,11 +164,13 @@ def run_grmpy_pipelined(graph_descs: List[dict], reference_path: str,
                         kernel_stats: Optional[dict] = None) -> List[dict]:
     """Event-ordered genotyping results for every graph, produced by the
     3-stage pipeline described in the module docstring. The round
-    scorers' stats are added into `kernel_stats` when given."""
+    scorers' stats and the device engine's are added into `kernel_stats`
+    when given, and the stage seconds set as its `stage_s`."""
     from .. import resolve_device
     from ..align.batched_aligner import resolve_threads
     from ..align.native import native_available
     from ..ops.multi_sw import PAIR_BUDGET
+    from .grmpy import resolve_gt_engine
 
     # initialise the device before the card is hidden from the children
     device = resolve_device(device)
@@ -185,6 +195,8 @@ def run_grmpy_pipelined(graph_descs: List[dict], reference_path: str,
     needs_align = [s for s in manifest if s.alignment_data is None]
     bam_specs = [(s.sample_name, s.filename, s.index_filename)
                  for s in needs_align]
+    defer_genotyping = resolve_gt_engine(parameters, len(manifest),
+                                         n_events) == "device"
 
     t_start = time.monotonic()
     progress_state = {"last": t_start}
@@ -206,7 +218,7 @@ def run_grmpy_pipelined(graph_descs: List[dict], reference_path: str,
             ctx, workers, rounds, graph_descs, reference_path, manifest,
             needs_align, bam_specs, genotyping_parameters, parameters,
             report_progress, n_events, device,
-            {} if kernel_stats is None else kernel_stats)
+            {} if kernel_stats is None else kernel_stats, defer_genotyping)
     finally:
         if saved is None:
             os.environ.pop("CUDA_VISIBLE_DEVICES", None)
@@ -217,9 +229,9 @@ def run_grmpy_pipelined(graph_descs: List[dict], reference_path: str,
 def _run_pipeline(ctx, workers, rounds, graph_descs, reference_path,
                   manifest, needs_align, bam_specs, genotyping_parameters,
                   parameters, report_progress, n_events, device,
-                  kernel_stats):
-    from ..ops.multi_sw import PairedGraphSW
+                  kernel_stats, defer_genotyping=False):
     from .. import add_stats
+    from ..ops.multi_sw import PairedGraphSW
 
     stage_t: Dict[str, float] = {}
     extract_futs: Dict[int, object] = {}
@@ -266,7 +278,7 @@ def _run_pipeline(ctx, workers, rounds, graph_descs, reference_path,
                 analysis_futs[gi] = pools[gi % workers].submit(
                     _analyze_event, gi, graph_descs[gi], reference_path,
                     genotyping_parameters, parameters, per_sample,
-                    bam_specs, parameters.max_reads)
+                    bam_specs, parameters.max_reads, defer_genotyping)
             _clock("device_wait+submit", t0)
 
         def build_sw(r: int):
@@ -325,10 +337,25 @@ def _run_pipeline(ctx, workers, rounds, graph_descs, reference_path,
 
         t0 = time.perf_counter()
         results = []
-        for gi in range(n_events):
-            results.append(analysis_futs[gi].result())
-            report_progress(gi + 1)
-        _clock("analysis_wait", t0)
+        if defer_genotyping:
+            from ..genotyping.device_engine import genotype_events_on_device
+            from .grmpy import make_event_genotyper
+
+            genotypers = [make_event_genotyper(
+                graph_descs[gi], reference_path, genotyping_parameters,
+                analysis_futs[gi].result()) for gi in range(n_events)]
+            t0 = _clock("analysis_wait", t0)
+            genotype_events_on_device(genotypers, device, kernel_stats)
+            for gi, gtr in enumerate(genotypers):
+                results.append(gtr.get_genotypes())
+                report_progress(gi + 1)
+            _clock("device_genotype", t0)
+        else:
+            for gi in range(n_events):
+                results.append(analysis_futs[gi].result())
+                report_progress(gi + 1)
+            _clock("analysis_wait", t0)
+        kernel_stats["stage_s"] = dict(stage_t)
         logger.info("[pipeline] stage seconds: %s",
                     {k: round(v, 2) for k, v in sorted(stage_t.items())})
         if kernel_stats.get("dispatches"):

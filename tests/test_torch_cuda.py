@@ -364,24 +364,126 @@ def test_graph_kernel_on_lane_counts_off_the_cta(n_lanes, cuda_device):
     assert torch.equal(psw.graph_fill(t), psw.graph_fill_reference(t))
 
 
+def _short_graph_long_reads(M, seed, n_cols=200):
+    """A graph of four nodes and ~n_cols columns (the paired fills' packed
+    end-cell word takes M = 2048 only over <= 256 columns per event) and
+    reads of mixed lengths: 20 to 150 bases, and 833 to M bases holding a
+    stretch of the graph's path between random flanks, one of exactly M
+    and two whose stretch ends on rows 831 and 832."""
+    rng = random.Random(seed)
+    seqs = [_seq(rng, n_cols // 4) for _ in range(4)]
+    g = SequenceGraph([f"n{i}" for i in range(4)], seqs)
+    for f, t in [(0, 1), (0, 2), (1, 2), (2, 3), (1, 3)]:
+        g.add_edge(f, t)
+    path = "".join(seqs)
+    reads = [path[k:k + rng.randint(20, 150)] for k in range(0, 120, 20)]
+    for end in (832, 833):
+        reads.append(_seq(rng, end - len(path)) + path
+                     + _seq(rng, rng.randint(0, M - end)))
+    for n in [M] + [rng.randint(833, M) for _ in range(5)]:
+        k = rng.randint(20, len(path))
+        pre = rng.randint(0, n - k)
+        reads.append(_seq(rng, pre) + path[:k] + _seq(rng, n - pre - k))
+    return g, reads
+
+
 @pytest.mark.cuda
-def test_wrappers_refuse_more_rows_than_instantiated(cuda_device):
-    M = 864  # past 26 rows x 32 threads
-    g, reads = _long_case(M, seed=73)
+@pytest.mark.parametrize("M", [833, 864, 1024, 1500, 2048])
+def test_kernels_on_long_reads(M, cuda_device):
+    """Past 832 rows the three kernels run in row bands: each equals its
+    plain fill on reads of mixed lengths in one launch. K3 on a graph of
+    ~5 M / 3 columns and on a short one; K1 and K2 on the short one, where
+    their packed end-cell word holds the scores."""
+    g, reads = _long_case(M, seed=M)
+    reads = reads + [r[:40] for r in reads]
     codes, lens, vlens = encode_reads(reads, M)
     t3 = psw.graph_tables_from_numpy(GraphArrays.build(g), codes.T, lens,
                                      vlens, cuda_device)
+    before = psw.graph_fill.launches
+    assert torch.equal(psw.graph_fill(t3), psw.graph_fill_reference(t3))
+    assert psw.graph_fill.launches == before + 1
+    fills = _all_kernels_match(*_short_graph_long_reads(M, seed=M),
+                               cuda_device, M)
+    assert min(fills) > 832 and fills[0] == -(M // -16) * 16
+
+
+@pytest.mark.cuda
+def test_wrappers_refuse_more_rows_than_instantiated(cuda_device):
+    """Past 832 rows K3 takes any M; K1 and K2 refuse exactly where the
+    packed end-cell word of their plain fills (pack_bits) refuses: 2048
+    rows over 512 columns per event."""
+    from paragraph_tpu_torch.ops.batched_sw import pack_bits
+
+    M = 2048
+    g, reads = _short_graph_long_reads(M, seed=73, n_cols=400)
+    codes, lens, vlens = encode_reads(reads, M)
+    t3 = psw.graph_tables_from_numpy(GraphArrays.build(g), codes.T, lens,
+                                     vlens, cuda_device)
+    assert torch.equal(psw.graph_fill(t3), psw.graph_fill_reference(t3))
+    # build_pair_tables refuses these tables itself; a 200-column graph's
+    # tables, told 512 columns per event, reach the wrappers
+    with pytest.raises(ValueError, match="packed end-cell word"):
+        _host_tables([g], [reads])
+    g, reads = _short_graph_long_reads(M, seed=73)
     a, t = _host_tables([g], [reads])
+    assert t["l_ev"] == 256 and t["m"] == M
+    assert pack_bits(256, M, 1) is not None and pack_bits(512, M, 1) is None
     t1 = msw.tables_from_numpy(t, a, cuda_device)
     t2, _ = msw.MultiGraphSW([g], device=cuda_device).tables(0, [reads])
-    before = (psw.graph_fill.launches, msw.paired_fill.launches,
-              msw.multi_fill.launches)
-    for fill, tables in ((psw.graph_fill, t3), (msw.paired_fill, t1),
-                         (msw.multi_fill, t2)):
-        with pytest.raises(ValueError):
-            fill(tables)
-    assert before == (psw.graph_fill.launches, msw.paired_fill.launches,
-                      msw.multi_fill.launches)
+    before = (msw.paired_fill.launches, msw.multi_fill.launches)
+    for fill, plain, tables in ((msw.paired_fill, msw.paired_fill_reference,
+                                 t1),
+                                (msw.multi_fill, msw.multi_fill_reference,
+                                 t2)):
+        wide = dataclasses.replace(tables, l_ev=512)
+        for f in (fill, plain):
+            with pytest.raises(ValueError, match="packed end-cell word"):
+                f(wide)
+    assert before == (msw.paired_fill.launches, msw.multi_fill.launches)
+    for fill, plain, tables in ((msw.paired_fill, msw.paired_fill_reference,
+                                 t1),
+                                (msw.multi_fill, msw.multi_fill_reference,
+                                 t2)):
+        assert torch.equal(fill(tables), plain(tables))
+
+
+@pytest.mark.cuda
+def test_device_engine_on_cuda_matches_cpu(cuda_device):
+    """The float32 genotyping engine (genotyping/batched.py) on the card
+    against itself on the CPU: gl within 1e-5 relative; the integer
+    outputs equal, but best_gt where the top two gl are within 1e-3 and GQ
+    where its error probability is under 8 float32 ulps of the best gl
+    (tests/test_torch_device_engine.py)."""
+    from paragraph_tpu_torch.genotyping import batched
+    from paragraph_tpu_torch.genotyping.parameters import (
+        GenotypingParameters)
+
+    rng = np.random.default_rng(3)
+    n = 4096
+    param = GenotypingParameters(["REF", "ALT", "ALT2"], 2)
+    depth = rng.choice([10.0, 30.0, 60.0], n).astype(np.float32)
+    inputs = (rng.poisson(depth[:, None] * rng.uniform(0, 0.6, (n, 3)))
+              .astype(np.int32), depth,
+              rng.choice([100.0, 150.0], n).astype(np.float32),
+              np.sqrt(5 * depth).astype(np.float32), rng.random(n) < 0.5)
+    outs = {}
+    for dev in ("cpu", cuda_device):
+        model = batched.model_from_parameters(param, dev)
+        out = batched.batched_genotype_full(
+            *(torch.as_tensor(x).to(dev) for x in inputs),
+            model["gt_ploidy"], model["error_rates"], model["het_fractions"],
+            model["log_priors"])
+        outs[str(dev)] = {k: v.cpu().numpy() for k, v in out.items()}
+    got, want = outs["cuda"], outs["cpu"]
+    np.testing.assert_allclose(got["gl"], want["gl"], rtol=1e-5, atol=1e-6)
+    gl = np.sort(want["gl"].astype(np.float64), -1)
+    tie = gl[:, -1] - gl[:, -2] < 1e-3
+    pr_err = -np.expm1(-np.log(np.exp(gl - gl[:, -1:]).sum(-1)))
+    unresolved = pr_err <= 8 * np.spacing(np.abs(gl[:, -1]).astype(np.float32))
+    for k, allowed in (("best_gt", tie), ("gq", tie | unresolved)):
+        assert not ((got[k] != want[k]) & ~allowed).any(), k
+    for k in ("num_reads", "no_reads", "gq_filter", "bp_depth"):
+        np.testing.assert_array_equal(got[k], want[k], err_msg=k)
 
 
 @pytest.mark.cuda

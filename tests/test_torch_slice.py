@@ -198,16 +198,19 @@ def test_workers_refuse_to_score():
 
 
 def test_device_genotyping_is_not_silently_replaced():
+    """auto takes the device engine for >= 4 samples and >= 8 events (the
+    JAX package's rule); an explicit engine is kept as it is."""
     from paragraph_tpu_torch.pipeline.grmpy import (GrmpyParameters,
                                                     resolve_gt_engine)
 
     params = GrmpyParameters()
     assert resolve_gt_engine(params, 1, 1000) == "host"
     assert resolve_gt_engine(params, 4, 7) == "host"
-    with pytest.raises(NotImplementedError, match="queue A item 6"):
-        resolve_gt_engine(params, 4, 8)
-    with pytest.raises(NotImplementedError):
-        resolve_gt_engine(GrmpyParameters(gt_engine="device"), 1, 1)
+    assert resolve_gt_engine(params, 4, 8) == "device"
+    assert resolve_gt_engine(GrmpyParameters(gt_engine="device"), 1,
+                             1) == "device"
+    assert resolve_gt_engine(GrmpyParameters(gt_engine="host"), 8,
+                             1000) == "host"
 
 
 def test_cuda_without_a_card_raises(wl3, tmp_path):

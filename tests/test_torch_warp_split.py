@@ -57,14 +57,21 @@ def _one_torch_thread():
 
 
 def warp_split_columns(ref, node, start, last, preds, x, lens, vlens, G,
-                       gap_open, gap_extend, match, mismatch):
+                       gap_open, gap_extend, match, mismatch, carry=None,
+                       keep_boundary=False):
     """The warp-per-lane fill of lanes that share one column stream.
 
     ref / node / start / last: the columns (python ints); preds: the
     predecessor table [N][P] (value N = zero state); x: int32 [M, B]
     codes in each lane's orientation; lens / vlens: [B]. Returns, per group
     and lane, (best, best column, best global row) [G, B] each, and the
-    node maxima [N, B]."""
+    node maxima [N, B].
+
+    The rows above these M (the row bands of sw_warp.cuh): `carry` =
+    (diag [L, B], A [L, B]) gives, per column, the H entering it at the
+    row above row 0 (thread 0's diagonal, else 0) and the F carry A
+    entering row 0 (else none); `keep_boundary` appends the same two of
+    this block's last row, for the block below."""
     M, B = x.shape
     N = len(preds)
     R = -(M // -G)
@@ -91,6 +98,8 @@ def warp_split_columns(ref, node, start, last, preds, x, lens, vlens, G,
     best = torch.zeros((G, B), dtype=i32)
     best_col = torch.zeros((G, B), dtype=i32)
     best_row = torch.zeros((G, B), dtype=i32)
+    diag_out = torch.zeros((len(ref), B), dtype=i32)
+    a_out = torch.zeros((len(ref), B), dtype=i32)
     for c in range(len(ref)):
         nid = node[c]
         if start[c]:
@@ -101,20 +110,30 @@ def warp_split_columns(ref, node, start, last, preds, x, lens, vlens, G,
                     h = torch.maximum(h, saved_h[pq])
                     e = torch.maximum(e, saved_e[pq])
             node_run = torch.zeros_like(node_run)
-        # diagonal: a thread's first row takes its neighbour's last row
-        up = torch.cat([torch.zeros((1, 1, B), dtype=i32), h[:-1, -1:]])
+        diag_out[c] = h[-1, -1]
+        # diagonal: a thread's first row takes its neighbour's last row,
+        # thread 0's the carried one (or 0)
+        up0 = torch.zeros((1, 1, B), dtype=i32) if carry is None else \
+            carry[0][c].view(1, 1, B)
+        up = torch.cat([up0, h[:-1, -1:]])
         diag = torch.cat([up, h[:, :-1]], 1)
         hp = torch.clamp_min(torch.maximum(diag + prof_all[ref[c]], e), 0)
         # thread-local prefix: A_r = max_{k<=r} (hp_k - (r-k) gapE)
         run = torch.cummax(hp + decay, 1).values - decay
-        # exclusive scan of the threads' carries, log2 G shuffle steps
+        # exclusive scan of the threads' carries, log2 G shuffle steps;
+        # a carried A joins thread 0's, decayed over its R rows
         s = run[:, -1]
+        if carry is not None:
+            s = torch.cat([torch.maximum(s[:1], carry[1][c] - R * gap_extend),
+                           s[1:]])
         d = 1
         while d < G:
             o = torch.where(g_idx >= d, torch.roll(s, d, 0), s)
             s = torch.maximum(o - d * R * gap_extend, s)
             d *= 2
-        a_in = torch.where(g_idx == 0, NEG, torch.roll(s, 1, 0))  # [G, B]
+        a_out[c] = s[-1]  # A after the last row
+        a_first = NEG if carry is None else carry[1][c]
+        a_in = torch.where(g_idx == 0, a_first, torch.roll(s, 1, 0))  # [G, B]
         # A entering row r: the carry decayed over r rows, or this
         # thread's own rows above r
         own = torch.cat([torch.full((G, 1, B), NEG, dtype=i32),
@@ -135,6 +154,8 @@ def warp_split_columns(ref, node, start, last, preds, x, lens, vlens, G,
             saved_h[nid] = h
             saved_e[nid] = e
             node_max[nid] = node_run.amax(0)  # the group's reduction
+    if keep_boundary:
+        return best, best_col, best_row, node_max, diag_out, a_out
     return best, best_col, best_row, node_max
 
 
