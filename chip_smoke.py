@@ -82,18 +82,26 @@ Phases, in order; any failure exits non-zero before the result line:
    reports SV x sample/s, the stage seconds and the confident-call
    accuracy against the planted genotypes
    (bench_population.score_population).
+12. multiparagraph: the port's multiparagraph tool on cuda over every DEL
+   and INS event of phase 4's workload (400 events as the reference
+   tool's event list: chrom, start, end, and ins for insertions), one
+   template graph per event, its reads scored through the single-graph
+   kernel. Requires K3 launches, every event back with its
+   alignment_statistics, and the first 3 events on cpu giving the same
+   JSON apart from the engine marker; reports events/s.
 
 Each kernel's launches are counted on its own path, with the counts set
 to 0 just before it and read just after: the paired kernel on phase 4
 (and on phase 11's run, reported there), the single-graph kernel on
-phase 7, the multi kernel on phase 9's cuda runs, the ablation kernel on
-phase 10's timing of each TPU body's variants. The process refuses to import jax and the JAX package. The
-last three lines are the card's name and power limit, then {"kernels":
-[...]} (paired_sw, graph_sw, multi_sw and one kbench_sw entry per TPU
-kernel body of tools/kbench2.py, each with its bound: the larger of the
-int32 operations (DPX fused) the needed cells take on the card's INT32
-lanes at the maximum SM clock and the bytes of its tensors at the memory
-rate), then
+phase 7 (and on phase 12's cuda run, reported beside it), the multi
+kernel on phase 9's cuda runs, the ablation kernel on phase 10's timing
+of each TPU body's variants. The process refuses to import jax and the
+JAX package. The last three lines are the card's name and power limit,
+then {"kernels": [...]} (paired_sw, graph_sw, multi_sw and one
+kbench_sw entry per TPU kernel body of tools/kbench2.py, each with its
+bound: the larger of the int32 operations (DPX fused) the needed cells
+take on the card's INT32 lanes at the maximum SM clock and the bytes of
+its tensors at the memory rate), then
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 """
 import gzip
@@ -1362,6 +1370,83 @@ def _warm_model_call_s(n: int) -> float:
     return time.perf_counter() - t0
 
 
+# --------------------------------------------------------------- phase 12
+
+
+def _multiparagraph_events(events, contig: str):
+    """multiparagraph's event list for every DEL and INS of the workload,
+    in the reference tool's convention: deleted bases start..end; an
+    insertion after base `pos` has end = start - 1 and its sequence."""
+    out = []
+    for ev in events:
+        if ev["kind"] == "DEL":
+            out.append({"chrom": contig, "start": ev["pos"] + 1,
+                        "end": ev["pos"] + ev["size"]})
+        elif ev["kind"] == "INS":
+            out.append({"chrom": contig, "start": ev["pos"] + 1,
+                        "end": ev["pos"], "ins": ev["ins_seq"]})
+    return out
+
+
+def phase_multiparagraph(card: str, wl: str, events):
+    """The port's multiparagraph tool on cuda over every DEL and INS event
+    of the workload, then its first CLI_EVENTS events on cpu; returns the
+    single-graph kernel's launches in the cuda run."""
+    from paragraph_tpu_torch.cli.main import main as cli_main
+    from paragraph_tpu_torch.genotyping.sample_info import load_manifest
+    from paragraph_tpu_torch.ops.pallas_sw import graph_fill
+
+    opts = _options(wl, os.path.join(wl, "multiparagraph"))
+    bam = load_manifest(opts.manifest)[0].filename
+    with open(opts.reference) as f:
+        contig = f.readline()[1:].split()[0]
+    event_list = _multiparagraph_events(events, contig)
+    path = os.path.join(wl, "multiparagraph_events.json")
+    with open(path, "w") as f:
+        json.dump(event_list, f)
+    outs, secs = {}, {}
+    launches = 0
+    for device, extra in (("cuda", []),
+                          ("cpu", ["--max-events", str(CLI_EVENTS)])):
+        out = os.path.join(wl, f"multiparagraph_{device}.json")
+        graph_fill.launches = 0
+        t0 = time.perf_counter()
+        rc = cli_main(["multiparagraph", path, "-b", bam, "-r",
+                       opts.reference, "-o", out, "--device", device]
+                      + extra)
+        secs[device] = time.perf_counter() - t0
+        if device == "cuda":
+            launches = graph_fill.launches
+        if rc != 0:
+            raise AssertionError(
+                f"multiparagraph --device {device}: rc {rc}")
+        with open(out) as f:
+            outs[device] = json.load(f)
+    n = len(event_list)
+    got = outs["cuda"]
+    if len(got) != n or any(
+            e["graph"].get("alignment_statistics", {}).get("engine")
+            != "cuda" for e in got):
+        raise AssertionError(f"multiparagraph on cuda: {len(got)} of {n} "
+                             "events came back with cuda alignment "
+                             "statistics")
+    if not 0 < launches <= 2 * n:
+        raise AssertionError(f"multiparagraph on cuda: graph_sw launches "
+                             f"{launches}, want 1..{2 * n}")
+    n_ins = sum(1 for e in event_list if "ins" in e)
+    say(f"[multiparagraph] {n} events ({n_ins} INS), on cuda: "
+        f"{secs['cuda']:.2f}s = {n / secs['cuda']:.2f} events/s; "
+        f"graph_sw launches={launches} [{card}]")
+    if json.dumps(_strip_engine(got[:CLI_EVENTS]), sort_keys=True) != \
+            json.dumps(_strip_engine(outs["cpu"]), sort_keys=True):
+        raise AssertionError(f"multiparagraph JSON of the first "
+                             f"{CLI_EVENTS} events differs between cuda "
+                             "and cpu")
+    say(f"[multiparagraph] first {CLI_EVENTS} events: cuda == cpu "
+        f"({secs['cpu']:.2f}s) apart from the engine marker [{card}]")
+    return launches
+
+
 def main() -> int:
     import logging
 
@@ -1398,7 +1483,10 @@ def main() -> int:
     m_err, m_launches, m_ms, m_plain_ms, k2_tables = phase_multi_kernel(card)
     k4 = phase_kbench(card, clock_hz)
     phase_population(card, POP_WORKLOAD, pop_events)
-    say(f"[smoke] phases 1-11 took {time.perf_counter() - t_start:.1f}s")
+    mp_launches = phase_multiparagraph(card, WORKLOAD, events)
+    say(f"[launches] graph_sw: {g_launches} on phase 7 (per-event path), "
+        f"{mp_launches} on phase 12 (multiparagraph)")
+    say(f"[smoke] phases 1-12 took {time.perf_counter() - t_start:.1f}s")
 
     import torch
 

@@ -4,8 +4,9 @@ The port runs the multigrmpy main path (VCF → graphs → paired graph
 Smith-Waterman scoring → host traceback, counting and float64
 genotyping → VCF) with the scoring fill as a hand-written CUDA kernel for
 Hopper (``ops/csrc/paired_sw.cu``), and the per-event path (the
-``paragraph`` CLI, grmpy per event) with the single-graph fill as another
-(``ops/csrc/graph_sw.cu``). Population runs (>= 4 samples, >= 8 events)
+``paragraph`` and ``multiparagraph`` CLIs, grmpy per event) with the
+single-graph fill as another (``ops/csrc/graph_sw.cu``). ``cli/`` has the
+JAX package's fifteen command-line tools. Population runs (>= 4 samples, >= 8 events)
 genotype the whole run in float32 PyTorch on the same device
 (``genotyping/device_engine.py``). The kernel benchmark tools
 (``tools/kbench.py``, ``tools/kbench2.py``) time the paired kernel and

@@ -1,7 +1,11 @@
-"""Command-line tools of the PyTorch / CUDA port: multigrmpy, grmpy and
-paragraph.
+"""Command-line tools of the PyTorch / CUDA port: the fifteen tools of
+``python -m paragraph_tpu.cli.main`` (multigrmpy, grmpy, paragraph,
+idxdepth, vcf2paragraph, graph-to-fasta, kmerstats, paragraph2dot, and
+through ``cli/tools.py`` multiparagraph, addVariants, grmpy-vcf-merge,
+msa2vcf, compare-alignments, pam, simulate-reads).
 
-The options are those of ``python -m paragraph_tpu.cli.main`` plus
+The options are those of the JAX package's tools. The four that score
+reads (multigrmpy, grmpy, paragraph, multiparagraph) also take
 ``--device {cuda,cpu}`` (default cuda). Invoke as
 ``python -m paragraph_tpu_torch.cli.main <tool> [options]`` or through
 the ``paragraph-tpu-torch`` console script.
@@ -258,10 +262,191 @@ def cmd_paragraph(argv):
     return 0
 
 
+def cmd_idxdepth(argv):
+    """idxdepth equivalent."""
+    from ..pipeline.idxdepth import estimate_depths
+
+    p = argparse.ArgumentParser("idxdepth")
+    p.add_argument("-b", "--bam", required=True)
+    p.add_argument("-r", "--reference", required=True)
+    p.add_argument("-o", "--output", default="-")
+    p.add_argument("-I", "--include-regex", default="")
+    p.add_argument("--autosome-regex", default=r"(chr)?[1-9][0-9]?")
+    p.add_argument("--sex-chromosome-regex", default=r"(chr)?[XY]")
+    p.add_argument("--include-alt-contig", action="store_true")
+    p.add_argument("--threads", type=int, default=1)
+    p.add_argument("--robust-depth", action="store_true",
+                   help="also fit a MinCovDet robust Gaussian over the "
+                        "sampled depths (outlier-resistant mean/variance "
+                        "per contig)")
+    args = p.parse_args(argv)
+    out = estimate_depths(
+        args.bam, args.reference, include_regex=args.include_regex,
+        autosome_regex=args.autosome_regex,
+        sex_chromosome_regex=args.sex_chromosome_regex,
+        include_alt_contig=args.include_alt_contig, threads=args.threads,
+        robust=args.robust_depth)
+    with _open_out(args.output) as f:
+        json.dump(out, f, sort_keys=True, indent=2)
+    return 0
+
+
+def cmd_vcf2paragraph(argv):
+    """vcf2paragraph.py equivalent (VCF → one graph JSON)."""
+    from ..graph.build import convert_vcf_records
+    from ..io.vcf import VcfReader
+
+    p = argparse.ArgumentParser("vcf2paragraph")
+    p.add_argument("input")
+    p.add_argument("output")
+    p.add_argument("-r", "--reference-sequence", dest="reference",
+                   required=True)
+    p.add_argument("-g", "--graph-type", default="alleles",
+                   choices=["alleles", "haplotypes"])
+    p.add_argument("-p", "--read-length", type=int, default=150)
+    p.add_argument("-l", "--max-ref-node-length", type=int, default=1000)
+    p.add_argument("-T", "--target-region", action="append", default=None)
+    p.add_argument("--ins-info-key", default="SEQ")
+    p.add_argument("--alt-paths", action="store_true")
+    p.add_argument("--alt-splitting", action="store_true")
+    p.add_argument("--retrieve-reference-sequence", action="store_true")
+    args = p.parse_args(argv)
+
+    records = list(VcfReader(args.input))
+    graph = convert_vcf_records(
+        records, args.reference, ins_info_key=args.ins_info_key,
+        target_regions=args.target_region,
+        ref_node_padding=args.read_length,
+        ref_node_max_length=args.max_ref_node_length,
+        allele_graph=args.graph_type == "alleles",
+        alt_paths=args.alt_paths, alt_splitting=args.alt_splitting)
+    if args.retrieve_reference_sequence:
+        from ..io.fasta import FastaFile
+        from ..io.regions import parse_region
+
+        fasta = FastaFile(args.reference)
+        for n in graph.get("nodes", []):
+            if "reference" in n:
+                chrom, start, end = parse_region(n["reference"])
+                n["reference_sequence"] = fasta.fetch(chrom, start - 1, end)
+    with _open_out(args.output) as f:
+        json.dump(graph, f, sort_keys=True, indent=4,
+                  separators=(",", ": "))
+    return 0
+
+
+def cmd_graph_to_fasta(argv):
+    """graph-to-fasta equivalent: emit every path sequence as a FASTA
+    contig (for read simulation, main/graph-to-fasta.cpp)."""
+    from ..graph.model import SequenceGraph
+
+    p = argparse.ArgumentParser("graph-to-fasta")
+    p.add_argument("-g", "--graph-spec", required=True)
+    p.add_argument("-r", "--reference", required=True)
+    p.add_argument("-o", "--output", default="-")
+    args = p.parse_args(argv)
+    desc = _load_json(args.graph_spec)
+    if "graph" in desc:
+        desc = {**desc, **desc["graph"]}
+    graph = SequenceGraph.from_json(desc, args.reference)
+    with _open_out(args.output) as f:
+        for path in desc.get("paths", []):
+            node_ids = [graph.name_to_id[n] for n in path["nodes"]]
+            seq = "".join(graph.node_seq(n) for n in node_ids)
+            f.write(f">{path['path_id']}\n")
+            for i in range(0, len(seq), 80):
+                f.write(seq[i:i + 80] + "\n")
+    return 0
+
+
+def cmd_kmerstats(argv):
+    """kmerstats equivalent: kmer uniqueness statistics for a graph
+    (main/kmerstats.cpp)."""
+    from ..align.kmer_index import KmerIndex
+    from ..graph.model import SequenceGraph
+
+    p = argparse.ArgumentParser("kmerstats")
+    p.add_argument("-g", "--graph-spec", required=True)
+    p.add_argument("-r", "--reference", required=True)
+    p.add_argument("-k", "--kmer-length", type=int, default=16)
+    p.add_argument("-o", "--output", default="-")
+    args = p.parse_args(argv)
+    desc = _load_json(args.graph_spec)
+    graph = SequenceGraph.from_json(desc, args.reference)
+    index = KmerIndex(graph, args.kmer_length)
+    n_unique = sum(1 for paths in index.kmer_to_paths.values()
+                   if len(paths) == 1)
+    out = {
+        "kmer_length": args.kmer_length,
+        "kmers": len(index.kmer_to_paths),
+        "unique_kmers": n_unique,
+        "nodes": [
+            {
+                "name": graph.node_name(n),
+                "unique_kmers": index.num_unique_kmers_overlapping_node(n),
+            }
+            for n in range(graph.num_nodes)
+        ],
+    }
+    with _open_out(args.output) as f:
+        json.dump(out, f, sort_keys=True, indent=2)
+    return 0
+
+
+def cmd_paragraph2dot(argv):
+    """paragraph2dot.py equivalent: graph JSON → graphviz dot."""
+    p = argparse.ArgumentParser("paragraph2dot")
+    p.add_argument("graph")
+    p.add_argument("output")
+    args = p.parse_args(argv)
+    desc = _load_json(args.graph)
+    if "graph" in desc:
+        desc = {**desc, **desc["graph"]}
+    with _open_out(args.output) as f:
+        f.write("digraph paragraph {\n")
+        for node in desc.get("nodes", []):
+            label = node["name"]
+            if "sequence" in node:
+                seq = node["sequence"]
+                label += "\\n" + (seq if len(seq) <= 20 else
+                                  seq[:8] + "..." + seq[-8:])
+            elif "reference" in node:
+                label += "\\n" + str(node["reference"])
+            f.write(f'  "{node["name"]}" [label="{label}"];\n')
+        for edge in desc.get("edges", []):
+            attrs = ""
+            if edge.get("sequences"):
+                attrs = f' [label="{",".join(edge["sequences"])}"]'
+            f.write(f'  "{edge["from"]}" -> "{edge["to"]}"{attrs};\n')
+        f.write("}\n")
+    return 0
+
+
+def _tool(name):
+    def run(argv):
+        from . import tools
+
+        return getattr(tools, name)(argv)
+
+    return run
+
+
 _COMMANDS = {
     "multigrmpy": cmd_multigrmpy,
     "grmpy": cmd_grmpy,
     "paragraph": cmd_paragraph,
+    "idxdepth": cmd_idxdepth,
+    "vcf2paragraph": cmd_vcf2paragraph,
+    "graph-to-fasta": cmd_graph_to_fasta,
+    "kmerstats": cmd_kmerstats,
+    "paragraph2dot": cmd_paragraph2dot,
+    "multiparagraph": _tool("cmd_multiparagraph"),
+    "addVariants": _tool("cmd_add_variants"),
+    "grmpy-vcf-merge": _tool("cmd_grmpy_vcf_merge"),
+    "msa2vcf": _tool("cmd_msa2vcf"),
+    "compare-alignments": _tool("cmd_compare_alignments"),
+    "pam": _tool("cmd_pam"),
+    "simulate-reads": _tool("cmd_simulate_reads"),
 }
 
 

@@ -537,3 +537,42 @@ def test_ablation_wrapper_refuses_what_the_kernel_does_not_take(
     monkeypatch.undo()
     assert torch.equal(kbench2.kbench_fill(odd, "v0"),
                        kbench2.kbench_fill_reference(odd, "v0"))
+
+
+@pytest.mark.cuda
+def test_multiparagraph_on_cuda_matches_cpu(cuda_device, tmp_path):
+    """The multiparagraph tool on a 4-event workload (two deletions, two
+    insertions, 10x): on cuda (the single-graph kernel, launched) and on
+    cpu (its plain fill) the JSON is the same apart from the engine
+    marker."""
+    import json
+    import os
+    import sys
+
+    sys.path.insert(0, os.path.join(os.path.dirname(__file__), "tools"))
+    from make_workload import generate
+    from test_torch_tools import multiparagraph_events
+
+    from paragraph_tpu_torch.cli.main import main
+
+    truth = generate(str(tmp_path), n_events=4, depth=10, seed=7,
+                     kinds=("DEL", "INS"))
+    events = tmp_path / "events.json"
+    events.write_text(json.dumps(multiparagraph_events(truth)))
+    outs = {}
+    for device in ("cuda", "cpu"):
+        before = psw.graph_fill.launches
+        out = tmp_path / f"{device}.json"
+        assert main(["multiparagraph", str(events), "-b",
+                     str(tmp_path / "sample.bam"), "-r",
+                     str(tmp_path / "ref.fa"), "-o", str(out), "--device",
+                     device]) == 0
+        launched = psw.graph_fill.launches - before
+        assert (launched > 0) == (device == "cuda"), (device, launched)
+        outs[device] = json.loads(out.read_text())
+    engines = [{e["graph"]["alignment_statistics"].pop("engine")
+                for e in outs[d]} for d in ("cuda", "cpu")]
+    assert engines == [{"cuda"}, {"torch"}]
+    assert len(outs["cuda"]) == 4
+    assert json.dumps(outs["cuda"], sort_keys=True) == json.dumps(
+        outs["cpu"], sort_keys=True)

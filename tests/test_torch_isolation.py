@@ -4,9 +4,10 @@ A static scan of every import statement (function bodies included) in
 the port's modules and in chip_smoke.py, and a subprocess whose import
 system refuses ``jax`` and ``paragraph_tpu``: it imports every module of
 the port, runs the ablation harness's plain fill on a tiny case, a
-2-event grmpy and the ``paragraph`` tool on the CPU over a workload made
-by the repo's generator (in this process, since the generator uses the
-JAX package's BGZF reader), and checks that the outputs came back.
+2-event grmpy and the ``paragraph``, ``idxdepth``, ``vcf2paragraph`` and
+``multiparagraph`` tools on the CPU over a workload made by the repo's
+generator (in this process, since the generator uses the JAX package's
+BGZF reader), and checks that the outputs came back.
 """
 import ast
 import json
@@ -72,7 +73,7 @@ class Refuse(importlib.abc.MetaPathFinder):
 
 
 sys.meta_path.insert(0, Refuse())
-wl, graph_a, graph_b, out_dir = sys.argv[1:]
+wl, graph_a, graph_b, events, out_dir = sys.argv[1:]
 
 import paragraph_tpu_torch
 names = [m.name for m in pkgutil.walk_packages(
@@ -103,6 +104,14 @@ assert main(["grmpy", "-r", f"{wl}/ref.fa", "-g", graph_a, graph_b,
 paragraph_out = f"{out_dir}/paragraph.json"
 assert main(["paragraph", "-b", f"{wl}/sample.bam", "-g", graph_a, "-r",
              f"{wl}/ref.fa", "-o", paragraph_out, "--device", "cpu"]) == 0
+assert main(["idxdepth", "-b", f"{wl}/sample.bam", "-r", f"{wl}/ref.fa",
+             "-o", f"{out_dir}/idxdepth.json",
+             "--autosome-regex", "chrS"]) == 0
+assert main(["vcf2paragraph", f"{wl}/candidates.vcf",
+             f"{out_dir}/vcf2paragraph.json", "-r", f"{wl}/ref.fa"]) == 0
+assert main(["multiparagraph", events, "-b", f"{wl}/sample.bam", "-r",
+             f"{wl}/ref.fa", "-o", f"{out_dir}/multiparagraph.json",
+             "--device", "cpu"]) == 0
 loaded = sorted(m for m, v in sys.modules.items() if v is not None
                 and m.split(".")[0] in ("jax", "paragraph_tpu"))
 print(json.dumps({"modules": len(names), "fills": fills,
@@ -113,12 +122,16 @@ print(json.dumps({"modules": len(names), "fills": fills,
 @pytest.fixture(scope="module")
 def workload(tmp_path_factory):
     from make_workload import generate
+    from test_torch_tools import multiparagraph_events
 
     from paragraph_tpu_torch.pipeline.multigrmpy import (
         MultigrmpyOptions, load_graph_description)
 
     wl = tmp_path_factory.mktemp("wl_isolated")
-    generate(str(wl), n_events=2, depth=10, seed=4)
+    truth = generate(str(wl), n_events=2, depth=10, seed=4)
+    assert [ev["kind"] for ev in truth] == ["DEL", "INS"]
+    events = wl / "events.json"
+    events.write_text(json.dumps(multiparagraph_events(truth)))
     graphs = load_graph_description(MultigrmpyOptions(
         input=str(wl / "candidates.vcf"), reference=str(wl / "ref.fa"),
         output=str(wl / "graphs")))
@@ -127,14 +140,14 @@ def workload(tmp_path_factory):
     for i, graph in enumerate(graphs):
         paths.append(wl / f"event{i}.json")
         paths[-1].write_text(json.dumps(graph))
-    return wl, paths
+    return wl, paths, events
 
 
 def test_port_runs_with_jax_and_the_jax_package_refused(workload, tmp_path):
-    wl, (graph_a, graph_b) = workload
+    wl, (graph_a, graph_b), events = workload
     proc = subprocess.run(
         [sys.executable, "-c", _ISOLATED, str(wl), str(graph_a),
-         str(graph_b), str(tmp_path)],
+         str(graph_b), str(events), str(tmp_path)],
         cwd=ROOT, capture_output=True, text=True, timeout=300,
         env={**os.environ, "PYTHONPATH": str(ROOT), "OMP_NUM_THREADS": "1"})
     assert proc.returncode == 0, proc.stderr[-3000:]
@@ -146,3 +159,11 @@ def test_port_runs_with_jax_and_the_jax_package_refused(workload, tmp_path):
     assert len(genotypes) == 2 and all("samples" in r for r in genotypes)
     paragraph = json.loads((tmp_path / "paragraph.json").read_text())
     assert paragraph["alignment_statistics"]["engine"] == "torch"
+    depth = json.loads((tmp_path / "idxdepth.json").read_text())
+    assert depth["autosome"]["contigs"] == ["chrS"]
+    graph = json.loads((tmp_path / "vcf2paragraph.json").read_text())
+    assert graph["nodes"] and graph["paths"]
+    per_event = json.loads((tmp_path / "multiparagraph.json").read_text())
+    assert [e["type"] for e in per_event] == ["del", "ins"]
+    assert all(e["graph"]["alignment_statistics"]["engine"] == "torch"
+               for e in per_event)
