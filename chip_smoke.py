@@ -89,13 +89,31 @@ Phases, in order; any failure exits non-zero before the result line:
    kernel. Requires K3 launches, every event back with its
    alignment_statistics, and the first 3 events on cpu giving the same
    JSON apart from the engine marker; reports events/s.
+13. sharding, on a mesh of 4 shards of the one card ([cuda:0] * 4; the
+   card host has one card, so no speed over several cards is measured):
+   (a) every pair of phase 4's workload through ShardedPairedSW and
+   PairedGraphSW: identical 5-tuples (tolerance 0), one K1 launch per
+   slot (rounds x 4, less the empty shards of a short last round), both
+   wall times in turns; (b) run_grmpy on the first 64 events over the
+   mesh and over the default mesh: equal genotypes, zero unexpected
+   misses; (c) two processes (gloo, a file:// rendezvous, both on
+   cuda:0, tests/test_torch_multihost.py as the worker) run
+   run_grmpy_multihost over all 1000 events: process 0's merged JSON ==
+   phase 4's genotypes, apart from the engine marker; (d)
+   graft_entry.dryrun_multichip(4) over the mesh on phase 11's workload
+   (8 events x 8 samples) and entry("cuda")'s K3 fill == its plain fill;
+   (e) a 16-event multigrmpy under PARAGRAPH_TPU_PROFILE, whose
+   torch.profiler trace must name the paired kernel, then
+   paragraph_tpu_torch/tools/prof_host.py by path on 64 events of phase
+   4's workload (its JSON line of host ms per event).
 
 Each kernel's launches are counted on its own path, with the counts set
 to 0 just before it and read just after: the paired kernel on phase 4
 (and on phase 11's run, reported there), the single-graph kernel on
 phase 7 (and on phase 12's cuda run, reported beside it), the multi
 kernel on phase 9's cuda runs, the ablation kernel on phase 10's timing
-of each TPU body's variants. The process refuses to import jax and the
+of each TPU body's variants; phase 13 counts the paired kernel's
+launches of each of its sharded runs. The process refuses to import jax and the
 JAX package. The last three lines are the card's name and power limit,
 then {"kernels": [...]} (paired_sw, graph_sw, multi_sw and one
 kbench_sw entry per TPU kernel body of tools/kbench2.py, each with its
@@ -127,6 +145,12 @@ EQ_EVENTS = 16
 PER_EVENT_EVENTS = 200
 CLI_EVENTS = 3
 FULL_READS = 10000
+#: phase 13: shards of the one card, events of the sharded run_grmpy, of
+#: the profiled multigrmpy and of the host profiler
+MESH_SHARDS = 4
+SHARDED_EVENTS = 64
+PROFILE_EVENTS = 16
+PROF_HOST_EVENTS = 64
 KERNEL_SOURCE = "paragraph_tpu_torch/ops/csrc/paired_sw.cu"
 KERNEL_REPLACES = "paragraph_tpu/ops/multi_sw.py:135"
 GRAPH_SOURCE = "paragraph_tpu_torch/ops/csrc/graph_sw.cu"
@@ -908,19 +932,41 @@ def phase_graph_kernel(card: str, opts, descs, clock_hz: float):
 # ---------------------------------------------------------------- phase 7
 
 
+def _check_against_truth(label: str, opts, manifest, results, events):
+    """Write genotypes.json.gz and the VCF as multigrmpy does into
+    opts.output and require zero unexpected misses against the planted
+    truth of the first len(results) events."""
+    from paragraph_tpu_torch.pipeline.vcfupdate import (
+        read_grmpy, update_vcf_from_grmpy)
+
+    sys.path.insert(0, ROOT)
+    from bench_e2e import check_truth
+
+    out_json = os.path.join(opts.output, "genotypes.json.gz")
+    with gzip.open(out_json, "wt", compresslevel=2) as f:
+        f.write(json.dumps(results, sort_keys=True, separators=(",", ":")))
+    out_vcf = os.path.join(opts.output, "genotypes.vcf.gz")
+    vcf_input = os.path.join(opts.output, "variants.vcf.gz")
+    if not os.path.isfile(vcf_input):
+        vcf_input = opts.input
+    update_vcf_from_grmpy(vcf_input, read_grmpy(results), out_vcf,
+                          [s.sample_name for s in manifest])
+    n_ok, misses = check_truth(out_vcf, out_json, events[:len(results)])
+    unexpected = [m for m in misses if m["reason"] == "unexpected"]
+    say(f"[{label}] correct {n_ok}/{len(results)}, misses {len(misses)} "
+        f"(unexpected {len(unexpected)})")
+    if unexpected:
+        raise AssertionError(f"unexpected misses: {unexpected[:5]}")
+
+
 def phase_per_event(card: str, wl: str, events, opts, descs):
     import copy
 
     from paragraph_tpu_torch.genotyping.sample_info import load_manifest
-    from paragraph_tpu_torch.pipeline.vcfupdate import (
-        read_grmpy, update_vcf_from_grmpy)
     from paragraph_tpu_torch.ops.multi_sw import paired_fill
     from paragraph_tpu_torch.ops.pallas_sw import graph_fill
     from paragraph_tpu_torch.pipeline.grmpy import GrmpyParameters, run_grmpy
     from paragraph_tpu_torch.pipeline.parallel_grmpy import _extract_event
-
-    sys.path.insert(0, ROOT)
-    from bench_e2e import check_truth
 
     manifest = load_manifest(opts.manifest)
     specs = [(s.sample_name, s.filename, s.index_filename)
@@ -956,21 +1002,7 @@ def phase_per_event(card: str, wl: str, events, opts, descs):
             f"{2 * with_reads}; paired_sw launches {paired}, want 0; "
             f"stats {stats}")
 
-    out_json = os.path.join(opts.output, "genotypes.json.gz")
-    with gzip.open(out_json, "wt", compresslevel=2) as f:
-        f.write(json.dumps(results, sort_keys=True, separators=(",", ":")))
-    out_vcf = os.path.join(opts.output, "genotypes.vcf.gz")
-    vcf_input = os.path.join(opts.output, "variants.vcf.gz")
-    if not os.path.isfile(vcf_input):
-        vcf_input = opts.input
-    update_vcf_from_grmpy(vcf_input, read_grmpy(results), out_vcf,
-                          [s.sample_name for s in manifest])
-    n_ok, misses = check_truth(out_vcf, out_json, events[:len(descs)])
-    unexpected = [m for m in misses if m["reason"] == "unexpected"]
-    say(f"[per-event] correct {n_ok}/{len(descs)}, misses {len(misses)} "
-        f"(unexpected {len(unexpected)})")
-    if unexpected:
-        raise AssertionError(f"unexpected misses: {unexpected[:5]}")
+    _check_against_truth("per-event", opts, manifest, results, events)
 
     t0 = time.perf_counter()
     batch = run_grmpy(copy.deepcopy(descs), opts.reference, manifest, None,
@@ -1357,16 +1389,17 @@ def _warm_model_call_s(n: int) -> float:
     from paragraph_tpu_torch.genotyping.parameters import (
         GenotypingParameters)
     from paragraph_tpu_torch.parallel.mesh import (
-        sharded_population_genotyping)
+        make_mesh, sharded_population_genotyping)
 
     rng = np.random.default_rng(0)
     model = model_from_parameters(GenotypingParameters(["REF", "ALT"], 2),
                                   "cuda")
     args = (rng.poisson(12, (n, 2)), np.full(n, 30.0), np.full(n, 150.0),
             np.full(n, 12.25), rng.random(n) < 0.5, model)
-    sharded_population_genotyping("cuda", *args)
+    mesh = make_mesh("cuda", 1)
+    sharded_population_genotyping(mesh, *args)
     t0 = time.perf_counter()
-    sharded_population_genotyping("cuda", *args)
+    sharded_population_genotyping(mesh, *args)
     return time.perf_counter() - t0
 
 
@@ -1447,6 +1480,251 @@ def phase_multiparagraph(card: str, wl: str, events):
     return launches
 
 
+# --------------------------------------------------------------- phase 13
+
+
+def _mesh():
+    """Phase 13's mesh: MESH_SHARDS shards on the one card."""
+    import torch
+
+    return [torch.device("cuda", 0)] * MESH_SHARDS
+
+
+def _all_pairs(wl: str):
+    """(graphs, read batches as (blob, lens)) of every (event x sample)
+    pair of the workload in `wl`, in phase 4's order."""
+    from paragraph_tpu_torch.genotyping.sample_info import load_manifest
+    from paragraph_tpu_torch.graph.model import SequenceGraph
+    from paragraph_tpu_torch.pipeline.multigrmpy import (
+        load_graph_description)
+    from paragraph_tpu_torch.pipeline.parallel_grmpy import (
+        _WORKER_STATE, _extract_event, _root_desc)
+
+    opts = _options(wl, os.path.join(wl, "sharded_pairs"))
+    descs = load_graph_description(opts)
+    manifest = load_manifest(opts.manifest)
+    specs = [(s.sample_name, s.filename, s.index_filename)
+             for s in manifest]
+    graphs, batches = [], []
+    for gi, d in enumerate(descs):
+        graph = SequenceGraph.from_json(_root_desc(d), opts.reference)
+        reads = _extract_event(gi, d, opts.reference, specs, 10000)
+        for s in manifest:
+            graphs.append(graph)
+            batches.append(reads[s.sample_name])
+    _WORKER_STATE.get("event_reads", {}).clear()
+    return graphs, batches
+
+
+def _sharded_scorer(card: str, wl: str):
+    """(a): every pair of phase 4's workload through ShardedPairedSW on
+    MESH_SHARDS shards of the card and through PairedGraphSW: identical
+    5-tuples, one K1 launch per slot; wall times in turns."""
+    import numpy as np
+    import torch
+
+    from paragraph_tpu_torch.ops.multi_sw import PairedGraphSW, paired_fill
+    from paragraph_tpu_torch.parallel.distributed import ShardedPairedSW
+
+    t0 = time.perf_counter()
+    graphs, batches = _all_pairs(wl)
+    say(f"[sharded] {len(batches)} pairs extracted in "
+        f"{time.perf_counter() - t0:.1f}s")
+    scorers = {"single": PairedGraphSW(graphs, device="cuda"),
+               "sharded": ShardedPairedSW(graphs, _mesh())}
+    sharded = scorers["sharded"]
+    outs, secs, launches = {}, {k: [] for k in scorers}, {}
+    for name in ("single", "sharded", "sharded", "single"):
+        torch.cuda.synchronize()
+        paired_fill.launches = 0
+        t0 = time.perf_counter()
+        outs[name] = scorers[name].score_pairs(batches)
+        secs[name].append(time.perf_counter() - t0)
+        launches[name] = paired_fill.launches
+    for k, (got, want) in enumerate(zip(outs["sharded"], outs["single"])):
+        for side in range(2):
+            for x, y in zip(got[side], want[side]):
+                if not np.array_equal(x, y):
+                    raise AssertionError(f"sharded != single at pair {k}")
+    n_rounds = len(sharded.rounds)
+    fillers = MESH_SHARDS * n_rounds - len(sharded.slot_pairs)
+    if launches["sharded"] != len(sharded.slot_pairs) \
+            or launches["sharded"] != sum(len(r) for r in sharded.rounds) \
+            or launches["single"] != len(scorers["single"].chunk_pairs):
+        raise AssertionError(f"launches {launches}, slots "
+                             f"{len(sharded.slot_pairs)}, rounds {n_rounds}")
+    say(f"[sharded] (a) {len(batches)} pairs: ShardedPairedSW on "
+        f"{MESH_SHARDS} shards of cuda:0 == PairedGraphSW (5-tuples "
+        f"identical, tolerance 0); K1 launches {launches['sharded']} = "
+        f"{n_rounds} rounds x {MESH_SHARDS} shards - {fillers} empty "
+        f"shards of the last round (one launch per slot), against "
+        f"{launches['single']} unsharded; wall s sharded "
+        f"{', '.join(f'{x:.3f}' for x in secs['sharded'])}, unsharded "
+        f"{', '.join(f'{x:.3f}' for x in secs['single'])} (one card: the "
+        f"difference is the sharding's host cost) [{card}]")
+
+
+def _sharded_pipeline(card: str, wl: str, events):
+    """(b): run_grmpy on the first SHARDED_EVENTS events over the mesh,
+    then over the default mesh: equal genotypes, zero unexpected
+    misses."""
+    import copy
+
+    from paragraph_tpu_torch.genotyping.sample_info import load_manifest
+    from paragraph_tpu_torch.ops.multi_sw import paired_fill
+    from paragraph_tpu_torch.pipeline.grmpy import GrmpyParameters, run_grmpy
+
+    opts, descs = _first_events_graphs(wl, events, SHARDED_EVENTS)
+    manifest = load_manifest(opts.manifest)
+    results, secs, launches = {}, {}, {}
+    for name, mesh in (("sharded", _mesh()), ("default", None)):
+        paired_fill.launches = 0
+        t0 = time.perf_counter()
+        results[name] = run_grmpy(copy.deepcopy(descs), opts.reference,
+                                  manifest, None, GrmpyParameters(),
+                                  device="cuda", mesh=mesh)
+        secs[name] = time.perf_counter() - t0
+        launches[name] = paired_fill.launches
+    if json.dumps(_strip_engine(results["sharded"]), sort_keys=True) != \
+            json.dumps(_strip_engine(results["default"]), sort_keys=True):
+        raise AssertionError("run_grmpy over the mesh != default mesh")
+    if launches["sharded"] <= launches["default"]:
+        raise AssertionError(f"K1 launches {launches}")
+    _check_against_truth("sharded", opts, manifest, results["sharded"],
+                         events)
+    say(f"[sharded] (b) run_grmpy, {SHARDED_EVENTS} events: mesh of "
+        f"{MESH_SHARDS} shards {secs['sharded']:.2f}s with "
+        f"{launches['sharded']} K1 launches == default mesh "
+        f"{secs['default']:.2f}s with {launches['default']} [{card}]")
+
+
+def _multihost(card: str, wl: str):
+    """(c): two processes (gloo, file:// rendezvous, both on cuda:0) run
+    run_grmpy_multihost over every event; process 0's merged JSON ==
+    phase 4's genotypes."""
+    import tempfile
+
+    sys.path.insert(0, os.path.join(ROOT, "tests"))
+    from test_torch_multihost import WORKER_TIMEOUT_S, run_workers
+
+    out = os.path.join(wl, "multihost.json")
+    with tempfile.TemporaryDirectory() as rdv_dir:
+        t0 = time.perf_counter()
+        logs = run_workers(wl, out, os.path.join(rdv_dir, "rdv"), "cuda")
+        elapsed = time.perf_counter() - t0
+    for rank, (rc, log) in enumerate(logs):
+        if rc != 0:
+            raise AssertionError(f"multihost worker {rank}: rc {rc}\n"
+                                 f"{log[-3000:]}")
+    with open(out) as f:
+        merged = json.load(f)
+    with gzip.open(os.path.join(wl, "out_cuda", "genotypes.json.gz"),
+                   "rt") as f:
+        single = json.load(f)
+    if json.dumps(_strip_engine(merged), sort_keys=True) != json.dumps(
+            _strip_engine(single), sort_keys=True):
+        raise AssertionError("multihost merge != phase 4's genotypes")
+    say(f"[multihost] (c) 2 processes over gloo on cuda:0, {len(merged)} "
+        f"events in {elapsed:.2f}s (process start and rendezvous "
+        f"included; timeout {WORKER_TIMEOUT_S}s each): merged == phase "
+        f"4's genotypes apart from the engine marker [{card}]")
+
+
+def _dryrun_and_entry(card: str):
+    """(d): dryrun_multichip over the mesh on phase 11's workload, and
+    entry("cuda")'s K3 fill == its plain fill."""
+    import torch
+
+    from paragraph_tpu_torch.graft_entry import dryrun_multichip, entry
+    from paragraph_tpu_torch.ops.multi_sw import paired_fill
+    from paragraph_tpu_torch.ops.pallas_sw import (GraphFillTables,
+                                                   graph_fill,
+                                                   graph_fill_reference)
+
+    paired_fill.launches = 0
+    t0 = time.perf_counter()
+    summary = dryrun_multichip(MESH_SHARDS, POP_WORKLOAD, mesh=_mesh())
+    say(f"[dryrun] (d) dryrun_multichip({MESH_SHARDS}) on {POP_WORKLOAD}: "
+        f"{summary}, sharded == serial, merged edge counts, device engine "
+        f"== host on every confident PASS call; "
+        f"{time.perf_counter() - t0:.2f}s, K1 launches "
+        f"{paired_fill.launches} [{card}]")
+    fn, args = entry("cuda")
+    before = graph_fill.launches
+    got = fn(*args)
+    launches = graph_fill.launches - before
+    want = graph_fill_reference(GraphFillTables(*args))
+    if launches != 1 or not torch.equal(got, want):
+        raise AssertionError(f"entry: {launches} K3 launches, or K3 != its "
+                             "plain fill")
+    say(f"[entry] entry('cuda'): K3 {tuple(got.shape)} == plain fill, "
+        f"scores {int(got[0].min())}-{int(got[0].max())} [{card}]")
+
+
+def _profile_and_prof_host(card: str, wl: str, events):
+    """(e): a PROFILE_EVENTS-event multigrmpy under PARAGRAPH_TPU_PROFILE
+    (its Chrome trace must name the paired kernel), then the host
+    profiler by path on PROF_HOST_EVENTS events."""
+    import tempfile
+
+    from paragraph_tpu_torch.pipeline.multigrmpy import run
+    from paragraph_tpu_torch.utils.profiling import ENV_VAR
+
+    vcf = _write_first_events_vcf(wl, events, PROFILE_EVENTS)
+    with tempfile.TemporaryDirectory() as trace_dir:
+        os.environ[ENV_VAR] = trace_dir
+        try:
+            t0 = time.perf_counter()
+            run(_options(wl, os.path.join(wl, "profiled"), vcf),
+                device="cuda")
+            elapsed = time.perf_counter() - t0
+        finally:
+            del os.environ[ENV_VAR]
+        traces = [os.path.join(root, f)
+                  for root, _, files in os.walk(trace_dir) for f in files
+                  if f.endswith(".pt.trace.json")]
+        if len(traces) != 1:
+            raise AssertionError(f"profile: traces {traces}")
+        with open(traces[0]) as f:
+            trace = json.load(f)
+    kernels = [e for e in trace["traceEvents"]
+               if e.get("cat") == "kernel"]
+    paired = [e for e in kernels if "paired_sw" in e.get("name", "")]
+    if not paired:
+        raise AssertionError(f"the trace names no paired_sw kernel "
+                             f"({len(kernels)} kernel events)")
+    say(f"[profile] (e) multigrmpy, {PROFILE_EVENTS} events under "
+        f"{ENV_VAR}: {elapsed:.2f}s; trace {os.path.basename(traces[0])} "
+        f"with {len(kernels)} kernel events, {len(paired)} paired_sw "
+        f"({sum(e.get('dur', 0) for e in paired) / 1e3:.3f} ms on the "
+        f"device) [{card}]")
+    proc = subprocess.run(
+        [sys.executable, "paragraph_tpu_torch/tools/prof_host.py",
+         "--events", str(PROF_HOST_EVENTS), "--workload", wl,
+         "--device", "cuda"], cwd=ROOT, capture_output=True, text=True,
+        timeout=600)
+    if proc.returncode != 0:
+        raise AssertionError(f"prof_host: rc {proc.returncode}\n"
+                             f"{proc.stderr[-3000:]}")
+    per_event = json.loads(proc.stdout.strip().splitlines()[-1])
+    say(f"[prof_host] {PROF_HOST_EVENTS} events of {wl}: "
+        f"{json.dumps(per_event)} [{card}]")
+
+
+def phase_sharding(card: str, wl: str, events) -> None:
+    """Phase 13: the sharded scorer, the pipeline over a mesh, two
+    processes, the dry run and entry, the profile and the host
+    profiler."""
+    t_start = time.perf_counter()
+    _sharded_scorer(card, wl)
+    _sharded_pipeline(card, wl, events)
+    _multihost(card, wl)
+    _dryrun_and_entry(card)
+    _profile_and_prof_host(card, wl, events)
+    say(f"[sharding] phase 13 took {time.perf_counter() - t_start:.1f}s; "
+        f"one card, so no speed over several cards is measured")
+
+
 def main() -> int:
     import logging
 
@@ -1486,7 +1764,8 @@ def main() -> int:
     mp_launches = phase_multiparagraph(card, WORKLOAD, events)
     say(f"[launches] graph_sw: {g_launches} on phase 7 (per-event path), "
         f"{mp_launches} on phase 12 (multiparagraph)")
-    say(f"[smoke] phases 1-12 took {time.perf_counter() - t_start:.1f}s")
+    phase_sharding(card, WORKLOAD, events)
+    say(f"[smoke] phases 1-13 took {time.perf_counter() - t_start:.1f}s")
 
     import torch
 

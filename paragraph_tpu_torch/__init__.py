@@ -8,7 +8,10 @@ Hopper (``ops/csrc/paired_sw.cu``), and the per-event path (the
 single-graph fill as another (``ops/csrc/graph_sw.cu``). ``cli/`` has the
 JAX package's fifteen command-line tools. Population runs (>= 4 samples, >= 8 events)
 genotype the whole run in float32 PyTorch on the same device
-(``genotyping/device_engine.py``). The kernel benchmark tools
+(``genotyping/device_engine.py``). Both shard over a mesh of devices
+(``parallel/``: every card of the host by default), and a run's events
+split over the processes of a torch.distributed group
+(``parallel/multihost.py``). The kernel benchmark tools
 (``tools/kbench.py``, ``tools/kbench2.py``) time the paired kernel and
 the ablation ladder of its column loop (``ops/csrc/kbench_sw.cu``).
 

@@ -6,7 +6,7 @@ genotype one event at a time on the host for bit parity with the
 reference (BreakpointGenotyper.cpp). This engine gathers every (event x
 sample x breakpoint) job of a whole grmpy run, groups the jobs by model
 signature (allele count, ploidy, rate tables), and evaluates each group in
-one float32 call on the run's device
+one float32 step over the run's mesh, one call per shard
 (parallel/mesh.py::sharded_population_genotyping). GL values agree with
 the float64 engine to float32 tolerance; GT, GQ and filters agree except
 within that tolerance of a decision boundary.
@@ -57,17 +57,22 @@ def _model_signature(param) -> tuple:
 
 
 def genotype_events_on_device(genotypers: List, device="cuda",
-                              stats: Optional[dict] = None) -> None:
+                              stats: Optional[dict] = None,
+                              mesh=None) -> None:
     """Genotype every event in `genotypers` (GraphBreakpointGenotyper
     instances with alignments added and parameters set) through the
-    float32 model on `device`, installing the results back into each
-    genotyper. Adds into `stats`, when given, the (sample x breakpoint)
-    jobs (`gt_device_jobs`) and the seconds of the model's calls, inputs
-    in and outputs out included (`gt_device_call_s`)."""
+    float32 model over `mesh` (default: every card of `device`'s type,
+    ``make_mesh``), installing the results back into each genotyper.
+    Adds into `stats`, when given, the (sample x breakpoint) jobs
+    (`gt_device_jobs`) and the seconds of the model's calls, inputs in
+    and outputs out included (`gt_device_call_s`)."""
     from .. import add_stats, resolve_device
-    from ..parallel.mesh import sharded_population_genotyping
+    from ..parallel.mesh import make_mesh, sharded_population_genotyping
 
     device = resolve_device(device)
+    if mesh is None:
+        mesh = make_mesh(device)
+    n_shards = len(mesh)
     # (model signature) -> the group's param and its [(event_idx, job)]
     groups: Dict[tuple, dict] = {}
     for ei, gtr in enumerate(genotypers):
@@ -85,14 +90,15 @@ def genotype_events_on_device(genotypers: List, device="cuda",
         param = grp["param"]
         jobs = grp["jobs"]
         model = model_from_parameters(param, device)
-        # one device, so no rows pad the batch to a mesh; such rows hold
-        # depth 1, read length 100 and sd 1, the arrays' initial values
+        # pad rows to a multiple of the shard count (none on one device);
+        # they hold depth 1, read length 100 and sd 1, and are never read
         n = len(jobs)
-        counts = np.zeros((n, param.num_alleles), np.int32)
-        depth = np.ones(n, np.float32)
-        rlen = np.full(n, 100.0, np.float32)
-        dsd = np.ones(n, np.float32)
-        poisson = np.zeros(n, bool)
+        n_pad = -(-n // n_shards) * n_shards
+        counts = np.zeros((n_pad, param.num_alleles), np.int32)
+        depth = np.ones(n_pad, np.float32)
+        rlen = np.full(n_pad, 100.0, np.float32)
+        dsd = np.ones(n_pad, np.float32)
+        poisson = np.zeros(n_pad, bool)
         for k, (_, (_, _, bp, cnt, _)) in enumerate(jobs):
             counts[k] = cnt
             depth[k] = bp.read_depth
@@ -101,7 +107,7 @@ def genotype_events_on_device(genotypers: List, device="cuda",
             poisson[k] = bp.use_poisson_depth
         t0 = time.perf_counter()
         out = sharded_population_genotyping(
-            device, counts, depth, rlen, dsd, poisson, model,
+            mesh, counts, depth, rlen, dsd, poisson, model,
             min_pass_gq=param.min_pass_gq)
         call_s += time.perf_counter() - t0
         for k, (ei, (samplename, bp_name, _, _, _)) in enumerate(jobs):

@@ -729,6 +729,22 @@ def multi_fill(t: MultiFillTables, gap_open: int = 6, gap_extend: int = 1,
 multi_fill.launches = 0
 
 
+def pair_graph_arrays(graphs: Sequence[SequenceGraph]):
+    """(forward, reversed) GraphArrays of each pair's graph, built once
+    for a graph listed several times (one graph per sample of an
+    event)."""
+    built = {}
+
+    def build(g):
+        key = id(g)
+        if key not in built:
+            built[key] = (GraphArrays.build(g),
+                          GraphArrays.build(g.reversed()))
+        return built[key]
+
+    return [build(g) for g in graphs]
+
+
 class PairedGraphSW:
     """Scorer for the full 4-orientation protocol over an event batch:
     one pair = (graph, its reads); the reversed graph and all read
@@ -752,42 +768,39 @@ class PairedGraphSW:
         from .. import resolve_device
 
         self.device = resolve_device(device)
-        #: per-run observability, read by the orchestrator's [kernel] line
-        self.stats = {"dispatches": 0, "cells": 0, "lanes": 0,
-                      "device_wait_s": 0.0, "dispatch_host_s": 0.0,
-                      "tables_s": 0.0, "put_s": 0.0, "call_s": 0.0}
-        built = {}
-
-        def build(g):
-            key = id(g)
-            if key not in built:
-                built[key] = (GraphArrays.build(g),
-                              GraphArrays.build(g.reversed()))
-            return built[key]
-
-        pair_gas = [build(g) for g in graphs]
-        self.chunk_pairs: List[List[int]] = []
+        pair_gas = pair_graph_arrays(graphs)
+        chunk_pairs: List[List[int]] = []
         cur: List[int] = []
         cur_cols = 0
         for i, (fa, ra) in enumerate(pair_gas):
             cols = len(fa.ref_codes) + len(ra.ref_codes)
             if cur and (cur_cols + cols > col_budget
                         or len(cur) >= PAIR_BUDGET):
-                self.chunk_pairs.append(cur)
+                chunk_pairs.append(cur)
                 cur, cur_cols = [], 0
             cur.append(i)
             cur_cols += cols
         if cur:
-            self.chunk_pairs.append(cur)
+            chunk_pairs.append(cur)
+        self._place(pair_gas, chunk_pairs, [self.device] * len(chunk_pairs))
+
+    def _place(self, pair_gas, chunk_pairs: List[List[int]], devices):
+        """Build each chunk's arrays and put its graph tensors on its
+        device (chunk k on devices[k]), once for every dispatch."""
+        #: per-run observability, read by the orchestrator's [kernel] line
+        self.stats = {"dispatches": 0, "cells": 0, "lanes": 0,
+                      "device_wait_s": 0.0, "dispatch_host_s": 0.0,
+                      "tables_s": 0.0, "put_s": 0.0, "call_s": 0.0}
+        self.chunk_pairs = chunk_pairs
         self.chunk_arrays: List[MultiGraphArrays] = []
         self._chunk_dev = []
-        for idxs in self.chunk_pairs:
+        for idxs, device in zip(chunk_pairs, devices):
             prebuilt = []
             for i in idxs:
                 prebuilt.extend(pair_gas[i])
             a = MultiGraphArrays(None, prebuilt=prebuilt)
             self.chunk_arrays.append(a)
-            self._chunk_dev.append(graph_tensors(a, self.device))
+            self._chunk_dev.append(graph_tensors(a, device))
 
     def _dispatch(self, chunk_i: int, reads_per_pair):
         t_host = time.perf_counter()
@@ -795,7 +808,9 @@ class PairedGraphSW:
         t = build_pair_tables(a, reads_per_pair, TILE_LANES)
         t0 = time.perf_counter()
         self.stats["tables_s"] += t0 - t_host
-        tables = dispatch_tables(t, *self._chunk_dev[chunk_i], self.device)
+        packed_cols, pred_tables = self._chunk_dev[chunk_i]
+        tables = dispatch_tables(t, packed_cols, pred_tables,
+                                 packed_cols.device)
         t1 = time.perf_counter()
         self.stats["put_s"] += t1 - t0
         out = paired_fill(tables)

@@ -1,10 +1,11 @@
-"""Multi-sample align + genotype workflow on one device.
+"""Multi-sample align + genotype workflow.
 
 Counterpart of ``align_single_sample``, ``align_samples_batched`` and
 ``run_grmpy`` in ``paragraph_tpu/pipeline/grmpy.py`` (grmpy::Workflow,
 AlignSamples.cpp, CountAndGenotype.cpp). Scoring runs on the caller's
-device through the port, and so does the float32 device genotyping
-engine where the batch path selects it; a failure raises.
+device through the port, sharded over the caller's mesh where it holds
+several devices, and so does the float32 device genotyping engine where
+the batch path selects it; a failure raises.
 ``GrmpyParameters``, the alignment dump and the float64 host genotyping
 are copied unchanged.
 """
@@ -199,13 +200,16 @@ def align_samples_batched(parameters: GrmpyParameters,
                           graph_descs: List[dict], reference_path: str,
                           manifest: List[SampleInfo],
                           readers: Dict[str, BamReader], device="cuda",
-                          kernel_stats: Optional[dict] = None):
+                          kernel_stats: Optional[dict] = None, mesh=None):
     """Cross-event batched alignment: extract reads for every (graph x
     sample) pair, score all pairs' orientations in one paired scorer
-    (ops/multi_sw.py) on `device`, then finish each pair's host analysis
+    (ops/multi_sw.py) on `device`, or sharded over `mesh` when it holds
+    more than one device and there is more than one pair
+    (parallel/distributed.py), then finish each pair's host analysis
     with the injected scores. Output-identical to the sequential path.
     The scorer's stats are added into `kernel_stats` when given."""
     from ..ops.multi_sw import PairedGraphSW
+    from ..parallel.distributed import ShardedPairedSW
 
     jobs = []  # (graph_desc, pp, graph, sample, reads)
     for graph_desc in graph_descs:
@@ -242,7 +246,10 @@ def align_samples_batched(parameters: GrmpyParameters,
                 r.graph_mapping_status = UNMAPPED
             graphs.append(graph)
             batches.append([r.bases.upper() for r in live])
-        paired = PairedGraphSW(graphs, device=device)
+        if mesh is not None and len(mesh) > 1 and len(graphs) > 1:
+            paired = ShardedPairedSW(graphs, mesh)
+        else:
+            paired = PairedGraphSW(graphs, device=device)
         results = paired.score_pairs(batches)
         add_stats(kernel_stats, paired.stats)
         for k, (f_out, r_out) in enumerate(results):
@@ -265,7 +272,8 @@ def run_grmpy(graph_descs: List[dict], reference_path: str,
               genotyping_parameters: Optional[dict] = None,
               parameters: Optional[GrmpyParameters] = None,
               batch_events: Optional[bool] = None, device="cuda",
-              kernel_stats: Optional[dict] = None) -> List[dict]:
+              kernel_stats: Optional[dict] = None,
+              mesh=None) -> List[dict]:
     """grmpy::Workflow::run (Workflow.cpp:191-239): align every
     (sample x graph), then genotype every graph; returns the list of
     genotyping result dicts (the genotypes.json array).
@@ -276,11 +284,18 @@ def run_grmpy(graph_descs: List[dict], reference_path: str,
     pipelined orchestrator runs (pipeline/parallel_grmpy.py). Otherwise
     each (event x sample) scores its own reads through two single-graph
     scorers. The batch and pipelined paths genotype with the engine that
-    resolve_gt_engine picks; the per-event path on the host. Every
-    scorer's stats, and the device engine's (`gt_device_jobs`,
-    `gt_device_call_s`), are added into `kernel_stats` when given.
+    resolve_gt_engine picks; the per-event path on the host. Both
+    paths score and genotype over `mesh` (default: every card of
+    `device`'s type, ``make_event_mesh``), sharded where it holds more
+    than one device. Every scorer's stats, and the device engine's
+    (`gt_device_jobs`, `gt_device_call_s`), are added into
+    `kernel_stats` when given.
     """
+    from ..parallel.distributed import make_event_mesh
+
     device = resolve_device(device)
+    if mesh is None:
+        mesh = make_event_mesh(device)
     if parameters is None:
         parameters = GrmpyParameters()
 
@@ -299,7 +314,8 @@ def run_grmpy(graph_descs: List[dict], reference_path: str,
 
         return run_grmpy_pipelined(graph_descs, reference_path, manifest,
                                    genotyping_parameters, parameters,
-                                   device=device, kernel_stats=kernel_stats)
+                                   device=device, kernel_stats=kernel_stats,
+                                   mesh=mesh)
 
     # grmpy --progress (Workflow.cpp:114-120,173-179): periodic
     # "N/M events done" lines, throttled to one every 10s plus a final one.
@@ -320,7 +336,7 @@ def run_grmpy(graph_descs: List[dict], reference_path: str,
         jobs = align_samples_batched(parameters, graph_descs,
                                      reference_path, manifest, readers,
                                      device=device,
-                                     kernel_stats=kernel_stats)
+                                     kernel_stats=kernel_stats, mesh=mesh)
         by_graph: Dict[int, List[SampleInfo]] = {}
         order = []
         for gd, pp, graph, s, reads in jobs:
@@ -338,7 +354,8 @@ def run_grmpy(graph_descs: List[dict], reference_path: str,
             genotypers = [make_event_genotyper(
                 gd, reference_path, genotyping_parameters, by_graph[key])
                 for key, gd in order]
-            genotype_events_on_device(genotypers, device, kernel_stats)
+            genotype_events_on_device(genotypers, device, kernel_stats,
+                                      mesh=mesh)
             for gtr in genotypers:
                 results.append(gtr.get_genotypes())
                 report_progress(len(results))

@@ -270,9 +270,12 @@ def run(options: MultigrmpyOptions, device="cuda",
         os.makedirs(alignment_dir, exist_ok=True)
         parameters.alignment_output_folder = alignment_dir
 
-    results = run_grmpy(graphs, options.reference, manifest,
-                        options.genotyping_parameters, parameters,
-                        device=device, kernel_stats=kernel_stats)
+    from ..utils.profiling import maybe_profile
+
+    with maybe_profile("grmpy"):
+        results = run_grmpy(graphs, options.reference, manifest,
+                            options.genotyping_parameters, parameters,
+                            device=device, kernel_stats=kernel_stats)
 
     if options.validate_schemas:
         from ..utils.schema import validate

@@ -9,7 +9,9 @@ cut into rounds of events and three resources are overlapped:
   worker processes   analyse round k-1      (traceback, disambiguation,
                                              counting, genotyping)
 
-Scoring happens only in the parent, on the caller's device. Workers are
+Scoring happens only in the parent, on the caller's device, or sharded
+over the caller's mesh when it holds several devices
+(parallel/distributed.py). Workers are
 spawned with the card hidden (``CUDA_VISIBLE_DEVICES=""``), never score,
 and raise if a pair that needs scores arrives without them. With the
 device genotyping engine the workers return each event's samples instead
@@ -161,19 +163,26 @@ def run_grmpy_pipelined(graph_descs: List[dict], reference_path: str,
                         manifest, genotyping_parameters: Optional[dict],
                         parameters, round_events: int = 0,
                         workers: int = 0, device="cuda",
-                        kernel_stats: Optional[dict] = None) -> List[dict]:
+                        kernel_stats: Optional[dict] = None,
+                        mesh=None) -> List[dict]:
     """Event-ordered genotyping results for every graph, produced by the
-    3-stage pipeline described in the module docstring. The round
-    scorers' stats and the device engine's are added into `kernel_stats`
-    when given, and the stage seconds set as its `stage_s`."""
+    3-stage pipeline described in the module docstring. Each round is
+    scored over `mesh` (default ``make_event_mesh(device)``): one
+    ``ShardedPairedSW`` when it holds more than one device, else one
+    ``PairedGraphSW`` on `device`. The round scorers' stats and the
+    device engine's are added into `kernel_stats` when given, and the
+    stage seconds set as its `stage_s`."""
     from .. import resolve_device
     from ..align.batched_aligner import resolve_threads
     from ..align.native import native_available
     from ..ops.multi_sw import PAIR_BUDGET
+    from ..parallel.distributed import make_event_mesh
     from .grmpy import resolve_gt_engine
 
-    # initialise the device before the card is hidden from the children
+    # initialise the devices before the card is hidden from the children
     device = resolve_device(device)
+    if mesh is None:
+        mesh = make_event_mesh(device)
     # build the native traceback library here, once: workers that race on
     # its first build fail to load it and trace back in Python, about 50x
     # slower, for the rest of their life
@@ -218,7 +227,8 @@ def run_grmpy_pipelined(graph_descs: List[dict], reference_path: str,
             ctx, workers, rounds, graph_descs, reference_path, manifest,
             needs_align, bam_specs, genotyping_parameters, parameters,
             report_progress, n_events, device,
-            {} if kernel_stats is None else kernel_stats, defer_genotyping)
+            {} if kernel_stats is None else kernel_stats, defer_genotyping,
+            mesh)
     finally:
         if saved is None:
             os.environ.pop("CUDA_VISIBLE_DEVICES", None)
@@ -229,9 +239,10 @@ def run_grmpy_pipelined(graph_descs: List[dict], reference_path: str,
 def _run_pipeline(ctx, workers, rounds, graph_descs, reference_path,
                   manifest, needs_align, bam_specs, genotyping_parameters,
                   parameters, report_progress, n_events, device,
-                  kernel_stats, defer_genotyping=False):
+                  kernel_stats, defer_genotyping, mesh):
     from .. import add_stats
     from ..ops.multi_sw import PairedGraphSW
+    from ..parallel.distributed import ShardedPairedSW
 
     stage_t: Dict[str, float] = {}
     extract_futs: Dict[int, object] = {}
@@ -292,6 +303,8 @@ def _run_pipeline(ctx, workers, rounds, graph_descs, reference_path,
                 graph = SequenceGraph.from_json(
                     _root_desc(graph_descs[gi]), reference_path)
                 graphs.extend([graph] * len(needs_align))
+            if len(mesh) > 1:
+                return ShardedPairedSW(graphs, mesh)
             return PairedGraphSW(graphs, device=device)
 
         pending_score = None
@@ -345,7 +358,8 @@ def _run_pipeline(ctx, workers, rounds, graph_descs, reference_path,
                 graph_descs[gi], reference_path, genotyping_parameters,
                 analysis_futs[gi].result()) for gi in range(n_events)]
             t0 = _clock("analysis_wait", t0)
-            genotype_events_on_device(genotypers, device, kernel_stats)
+            genotype_events_on_device(genotypers, device, kernel_stats,
+                                      mesh=mesh)
             for gi, gtr in enumerate(genotypers):
                 results.append(gtr.get_genotypes())
                 report_progress(gi + 1)

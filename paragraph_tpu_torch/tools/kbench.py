@@ -12,6 +12,7 @@ clock.
 
     python -m paragraph_tpu_torch.tools.kbench [--device cuda]
         [--iters 10] [--reads 8192]
+    python3 paragraph_tpu_torch/tools/kbench.py ...   (the same)
 
 Prints the shapes on stderr and one JSON line: ``single_dispatch_s``
 (best of 5), ``queued_per_dispatch_s``, ``cells`` (issued: columns x
@@ -23,8 +24,14 @@ import argparse
 import json
 import sys
 import time
+from pathlib import Path
 
 import numpy as np
+
+if __package__ in (None, ""):
+    # run by path: import the package from the checkout this file is in
+    sys.path.insert(0, str(Path(__file__).resolve().parents[2]))
+    __package__ = "paragraph_tpu_torch.tools"
 
 #: read length of the bench's reads
 READ_LEN = 150

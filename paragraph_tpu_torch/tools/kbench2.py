@@ -17,6 +17,7 @@ orientation).
     python -m paragraph_tpu_torch.tools.kbench2 [--device cuda]
         [--variants v0,opt2,...] [--k 4] [--reads 8192] [--readlen 150]
         [--m 0] [--check]
+    python3 paragraph_tpu_torch/tools/kbench2.py ...   (the same)
 
 The case is kbench's bench dispatch. ``--check`` prints ``check <name>:
 EXACT|MISMATCH`` for every variant listed: its kernel against its plain
@@ -33,6 +34,12 @@ import argparse
 import dataclasses
 import json
 import sys
+from pathlib import Path
+
+if __package__ in (None, ""):
+    # run by path: import the package from the checkout this file is in
+    sys.path.insert(0, str(Path(__file__).resolve().parents[2]))
+    __package__ = "paragraph_tpu_torch.tools"
 
 from ..ops import _build
 from ..ops.multi_sw import (WARP_LANES_PER_CTA, FillTables,

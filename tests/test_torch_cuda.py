@@ -1,7 +1,7 @@
 """The CUDA graph-SW kernels on the card, against their plain versions:
-the paired multi-event fill (K1), the single-graph fill (K3), the
-multi-event fill on expanded reads (K2) and the ablation variants of its
-column loop (K4).
+the paired multi-event fill (K1, also sharded over a mesh of one card),
+the single-graph fill (K3), the multi-event fill on expanded reads (K2)
+and the ablation variants of its column loop (K4).
 
 Every test here needs an NVIDIA card (marker ``cuda``) and skips without
 one. The file imports no jax, so on a machine without it the tests run
@@ -107,6 +107,78 @@ def test_scorer_on_cuda_matches_cpu(cuda_device):
             for x, y in zip(g[side], w[side]):
                 assert x.dtype == y.dtype
                 np.testing.assert_array_equal(x, y)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", sorted(CASES))
+def test_sharded_scorer_on_one_card_matches_single(name, cuda_device):
+    """ShardedPairedSW over [cuda:0] * 3 (three shards on one card, one
+    K1 launch per slot) against PairedGraphSW on the seeded cases."""
+    from paragraph_tpu_torch.parallel.distributed import ShardedPairedSW
+
+    graphs, rpp = _case(**CASES[name])
+    sharded = ShardedPairedSW(graphs, [torch.device("cuda", 0)] * 3)
+    before = msw.paired_fill.launches
+    got = sharded.score_pairs(rpp)
+    assert msw.paired_fill.launches - before == len(sharded.slot_pairs) \
+        == sum(len(r) for r in sharded.rounds) >= min(3, len(graphs))
+    want = msw.PairedGraphSW(graphs, device=cuda_device).score_pairs(rpp)
+    for g, w in zip(got, want):
+        for side in range(2):
+            for x, y in zip(g[side], w[side]):
+                np.testing.assert_array_equal(x, y)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", sorted(CASES))
+def test_sharded_scorer_over_every_card(name, cuda_device):
+    """ShardedPairedSW over the default mesh (every visible card, one
+    shard each) against PairedGraphSW on the first card."""
+    from paragraph_tpu_torch.parallel.distributed import (ShardedPairedSW,
+                                                          make_event_mesh)
+
+    graphs, rpp = _case(**CASES[name])
+    mesh = make_event_mesh("cuda")
+    assert mesh == [torch.device("cuda", i)
+                    for i in range(torch.cuda.device_count())]
+    sharded = ShardedPairedSW(graphs, mesh)
+    devices = {str(packed.device) for packed, _ in sharded._chunk_dev}
+    assert devices == {str(d) for d in mesh[:len(sharded.slot_pairs)]}
+    got = sharded.score_pairs(rpp)
+    want = msw.PairedGraphSW(graphs, device=cuda_device).score_pairs(rpp)
+    for g, w in zip(got, want):
+        for side in range(2):
+            for x, y in zip(g[side], w[side]):
+                np.testing.assert_array_equal(x, y)
+
+
+@pytest.mark.cuda
+def test_pipeline_over_every_card(cuda_device, tmp_path):
+    """graft_entry.dryrun_multichip over every visible card (distinct
+    cards; one on a one-card host) on an 8-event, 2-sample workload at
+    10x: the sharded pipelined run == the serial run, the merged edge
+    counts, and the device engine's confident calls; and
+    merged_edge_counts sums on the first card."""
+    import os
+    import sys
+
+    sys.path.insert(0, os.path.join(os.path.dirname(__file__), "tools"))
+    from make_workload import generate
+
+    from paragraph_tpu_torch.graft_entry import dryrun_multichip
+    from paragraph_tpu_torch.parallel.mesh import merged_edge_counts
+
+    n = torch.cuda.device_count()
+    generate(str(tmp_path), n_events=8, depth=10, seed=17, n_samples=2)
+    before = msw.paired_fill.launches
+    summary = dryrun_multichip(n, str(tmp_path))
+    assert summary["events"] == max(8, 2 * n)
+    assert msw.paired_fill.launches > before
+    support = np.random.default_rng(1).integers(0, 2, (8 * n, 5))
+    merged = merged_edge_counts([torch.device("cuda", i) for i in range(n)],
+                                support.astype(np.int32))
+    assert merged.device == torch.device("cuda", 0)
+    np.testing.assert_array_equal(merged.cpu().numpy(), support.sum(0))
 
 
 @pytest.mark.cuda

@@ -226,7 +226,7 @@ def test_population_step_matches_float64_engine():
         b_params.append(BreakpointGenotyperParameter(
             depth, 150, math.sqrt(5 * depth), i % 2 == 1))
     out = sharded_population_genotyping(
-        "cpu", counts, [p.read_depth for p in b_params],
+        [torch.device("cpu")], counts, [p.read_depth for p in b_params],
         [p.read_length for p in b_params], [p.depth_sd for p in b_params],
         [p.use_poisson_depth for p in b_params], model)
     assert all(isinstance(v, np.ndarray) for v in out.values())

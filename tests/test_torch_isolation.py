@@ -1,13 +1,17 @@
 """The PyTorch port stands alone: it imports neither jax nor the JAX package.
 
 A static scan of every import statement (function bodies included) in
-the port's modules and in chip_smoke.py, and a subprocess whose import
-system refuses ``jax`` and ``paragraph_tpu``: it imports every module of
-the port, runs the ablation harness's plain fill on a tiny case, a
-2-event grmpy and the ``paragraph``, ``idxdepth``, ``vcf2paragraph`` and
-``multiparagraph`` tools on the CPU over a workload made by the repo's
-generator (in this process, since the generator uses the JAX package's
-BGZF reader), and checks that the outputs came back.
+the port's modules, in chip_smoke.py and in the multi-host worker
+(tests/test_torch_multihost.py, its tests left out), and a subprocess whose import system
+refuses ``jax`` and ``paragraph_tpu``: it imports every module of the
+port, runs the ablation harness's plain fill on a tiny case, a 2-event
+grmpy, the ``paragraph``, ``idxdepth``, ``vcf2paragraph`` and
+``multiparagraph`` tools, the sharded scorer on a 2-entry mesh, the edge
+count merge, graft_entry.entry under the profiling hook, the host
+profiler and the multi-host worker (a group of one) on the CPU over a
+workload made by the repo's generator (in this process, since the
+generator uses the JAX package's BGZF reader), and checks that the
+outputs came back.
 """
 import ast
 import json
@@ -29,10 +33,15 @@ def _sources():
         ROOT / "chip_smoke.py"]
 
 
-def _forbidden_imports(path: Path):
-    """(line, module) of every absolute import of jax or paragraph_tpu."""
+def _forbidden_imports(path: Path, skip_tests: bool = False):
+    """(line, module) of every absolute import of jax or paragraph_tpu;
+    with `skip_tests`, outside the bodies of the test_* functions."""
+    tree = ast.parse(path.read_text(), str(path))
+    if skip_tests:
+        tree.body = [n for n in tree.body if not (
+            isinstance(n, ast.FunctionDef) and n.name.startswith("test_"))]
     found = []
-    for node in ast.walk(ast.parse(path.read_text(), str(path))):
+    for node in ast.walk(tree):
         if isinstance(node, ast.Import):
             names = [a.name for a in node.names]
         elif isinstance(node, ast.ImportFrom) and node.level == 0:
@@ -59,6 +68,15 @@ def test_scan_finds_the_imports_it_looks_for(tmp_path):
                          ids=lambda p: str(p.relative_to(ROOT)))
 def test_no_module_imports_jax_or_the_jax_package(path):
     assert _forbidden_imports(path) == []
+
+
+def test_multihost_worker_imports_neither():
+    """tests/test_torch_multihost.py is also the multi-host worker: apart
+    from its tests, which compare with the JAX package, it imports
+    neither."""
+    path = ROOT / "tests" / "test_torch_multihost.py"
+    assert _forbidden_imports(path, skip_tests=True) == []
+    assert _forbidden_imports(path) != []
 
 
 _ISOLATED = r"""
@@ -112,10 +130,38 @@ assert main(["vcf2paragraph", f"{wl}/candidates.vcf",
 assert main(["multiparagraph", events, "-b", f"{wl}/sample.bam", "-r",
              f"{wl}/ref.fa", "-o", f"{out_dir}/multiparagraph.json",
              "--device", "cpu"]) == 0
+import os
+import torch
+from paragraph_tpu_torch import graft_entry
+from paragraph_tpu_torch.parallel.distributed import ShardedPairedSW
+from paragraph_tpu_torch.parallel.mesh import merged_edge_counts
+from paragraph_tpu_torch.tools import prof_host
+from paragraph_tpu_torch.utils import profiling
+
+cpu = torch.device("cpu")
+sharded = ShardedPairedSW([g, g], [cpu] * 2).score_pairs(
+    [["ACGTGGATCTTAG"], ["TAGCATG"]])
+fn, args = graft_entry.entry("cpu")
+os.environ[profiling.ENV_VAR] = f"{out_dir}/profile"
+with profiling.maybe_profile("isolated"):
+    entry_scores = fn(*args)[0]
+del os.environ[profiling.ENV_VAR]
+assert prof_host.main(["--events", "2", "--workload", wl, "--device",
+                       "cpu"]) == 0
+sys.path.insert(0, "tests")
+import test_torch_multihost
+assert test_torch_multihost.worker(
+    [f"file://{out_dir}/rdv", "0", "1", wl, f"{out_dir}/multihost.json",
+     "cpu"]) == 0
 loaded = sorted(m for m, v in sys.modules.items() if v is not None
                 and m.split(".")[0] in ("jax", "paragraph_tpu"))
 print(json.dumps({"modules": len(names), "fills": fills,
-                  "loaded": loaded}))
+                  "loaded": loaded,
+                  "sharded": [int(p[0][0].max()) for p in sharded],
+                  "edges": merged_edge_counts(
+                      [cpu] * 2, [[1, 0], [1, 1]]).tolist(),
+                  "entry_min": int(entry_scores.min()),
+                  "traces": len(os.listdir(f"{out_dir}/profile/isolated"))}))
 """
 
 
@@ -167,3 +213,8 @@ def test_port_runs_with_jax_and_the_jax_package_refused(workload, tmp_path):
     assert [e["type"] for e in per_event] == ["del", "ins"]
     assert all(e["graph"]["alignment_statistics"]["engine"] == "torch"
                for e in per_event)
+    assert summary["sharded"] == [9, 7]
+    assert summary["edges"] == [2, 1]
+    assert summary["entry_min"] > 0 and summary["traces"] == 1
+    merged = json.loads((tmp_path / "multihost.json").read_text())
+    assert len(merged) == 2 and all("samples" in r for r in merged)
