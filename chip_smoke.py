@@ -31,7 +31,7 @@ Phases, in order; any failure exits non-zero before the result line:
    subprocess, since it uses the JAX package's BGZF reader, and reused;
    this process reads its truth.json). Requires paired kernel
    launches on that run, zero unexpected misses against the planted
-   truth (bench_e2e.check_truth) and the native traceback library.
+   truth (tools/bench_e2e.py::check_truth) and the native traceback library.
 5. kernel path == plain path end to end: the first 16 events through
    the port on cuda and on cpu give identical genotypes JSON and VCF
    records.
@@ -72,7 +72,7 @@ Phases, in order; any failure exits non-zero before the result line:
    multi kernel on the same buffers, against opt1_iprof (K2's body); and
    v0's plain fill once.
 11. population: the port's multigrmpy on cuda with gt_engine="auto" over
-   bench_population.py's default workload (make_workload: 150 events, 8
+   the population bench's default workload (make_workload: 150 events, 8
    samples, 30x, seed 17; generated into smoke_workload_pop/ in a
    subprocess started before phase 2, waited for before phase 3's full
    dispatch), so the float32 device genotyping engine runs in the
@@ -81,7 +81,7 @@ Phases, in order; any failure exits non-zero before the result line:
    (GQ >= 10) equal to a gt_engine="host" run's on the same workload;
    reports SV x sample/s, the stage seconds and the confident-call
    accuracy against the planted genotypes
-   (bench_population.score_population).
+   (tools/bench_population.py::score_population).
 12. multiparagraph: the port's multiparagraph tool on cuda over every DEL
    and INS event of phase 4's workload (400 events as the reference
    tool's event list: chrom, start, end, and ins for insertions), one
@@ -106,6 +106,21 @@ Phases, in order; any failure exits non-zero before the result line:
    torch.profiler trace must name the paired kernel, then
    paragraph_tpu_torch/tools/prof_host.py by path on 64 events of phase
    4's workload (its JSON line of host ms per event).
+14. bench harnesses: python -m paragraph_tpu_torch.tools.bench in a
+   subprocess on the card (TMPDIR set to smoke_workload/bench_tmp/, so
+   its workloads sit in the checkout: the end-to-end bench's 1000
+   events of seed 11, generated by make_workload.py's command line in a
+   subprocess started beside phase 11's and waited for with it, and
+   phase 11's population workload linked in at the population bench's
+   path). Requires its
+   last line to say path "cuda", the card's name as its platform,
+   cells/s > 0, zero unexpected misses in the end-to-end detail and the
+   population's confident calls and accuracy equal to phase 11's auto
+   run; reports cells/s (with the scorer's host table, copy and device
+   wait seconds per dispatch), SV/s and SV x sample/s beside phases 4
+   and 11. Then K1 alone on the bench's dispatch (tools/kbench.py's
+   tables) in this process: kernel == plain, both timed, with the bound,
+   to price the gap between the kernel and the whole dispatch.
 
 Each kernel's launches are counted on its own path, with the counts set
 to 0 just before it and read just after: the paired kernel on phase 4
@@ -113,8 +128,9 @@ to 0 just before it and read just after: the paired kernel on phase 4
 phase 7 (and on phase 12's cuda run, reported beside it), the multi
 kernel on phase 9's cuda runs, the ablation kernel on phase 10's timing
 of each TPU body's variants; phase 13 counts the paired kernel's
-launches of each of its sharded runs. The process refuses to import jax and the
-JAX package. The last three lines are the card's name and power limit,
+launches of each of its sharded runs; phase 14 runs in a subprocess of
+its own and counts nothing here. The process refuses to import jax and
+the JAX package. The last three lines are the card's name and power limit,
 then {"kernels": [...]} (paired_sw, graph_sw, multi_sw and one
 kbench_sw entry per TPU kernel body of tools/kbench2.py, each with its
 bound: the larger of the int32 operations (DPX fused) the needed cells
@@ -127,6 +143,7 @@ import json
 import os
 import random
 import re
+import signal
 import subprocess
 import sys
 import time
@@ -134,7 +151,8 @@ import time
 ROOT = os.path.dirname(os.path.abspath(__file__))
 WORKLOAD = os.path.join(ROOT, "smoke_workload")
 POP_WORKLOAD = os.path.join(ROOT, "smoke_workload_pop")
-#: bench_population.py's defaults: events, samples, seed
+#: the population bench's defaults (tools/bench_population.py): events,
+#: samples, seed
 POP_EVENTS = 150
 POP_SAMPLES = 8
 POP_SEED = 17
@@ -151,6 +169,13 @@ MESH_SHARDS = 4
 SHARDED_EVENTS = 64
 PROFILE_EVENTS = 16
 PROF_HOST_EVENTS = 64
+#: phase 14: the bench harnesses' TMPDIR, the end-to-end bench's workload
+#: (its defaults: 1000 events, seed 11) and the seconds the whole bench
+#: may take
+BENCH_TMP = os.path.join(WORKLOAD, "bench_tmp")
+BENCH_E2E_EVENTS = 1000
+BENCH_E2E_SEED = 11
+BENCH_TIMEOUT_S = 420
 KERNEL_SOURCE = "paragraph_tpu_torch/ops/csrc/paired_sw.cu"
 KERNEL_REPLACES = "paragraph_tpu/ops/multi_sw.py:135"
 GRAPH_SOURCE = "paragraph_tpu_torch/ops/csrc/graph_sw.cu"
@@ -670,25 +695,16 @@ def ensure_workload(wl: str):
     needed. The generator is a test tool of the repo that imports the
     JAX package's BGZF reader, so it runs in a subprocess of its own and
     this process only reads the truth.json it writes."""
-    truth = os.path.join(wl, "truth.json")
-    if os.path.isfile(truth):
-        with open(truth) as f:
-            events = json.load(f)
-        if len(events) == N_EVENTS:
-            say(f"[workload] reusing {wl}")
-            return events
+    from paragraph_tpu_torch.tools import bench_e2e
+
+    events = bench_e2e.workload_events(wl, N_EVENTS)
+    if events is not None:
+        say(f"[workload] reusing {wl}")
+        return events
     t0 = time.perf_counter()
-    env = dict(os.environ)
-    env["PYTHONPATH"] = os.pathsep.join(
-        [ROOT] + [p for p in [env.get("PYTHONPATH")] if p])
-    subprocess.run(
-        [sys.executable, os.path.join(ROOT, "tests", "tools",
-                                      "make_workload.py"), wl,
-         "--events", str(N_EVENTS), "--depth", str(DEPTH), "--seed",
-         str(SEED)], check=True, cwd=ROOT, env=env, timeout=600,
-        stdout=subprocess.DEVNULL)
-    with open(truth) as f:
-        events = json.load(f)
+    bench_e2e.run_generator(bench_e2e.generator_argv(
+        wl, N_EVENTS, SEED, "--depth", str(DEPTH)), timeout=600)
+    events = bench_e2e.workload_events(wl, N_EVENTS)
     say(f"[workload] generated {N_EVENTS} events at {DEPTH}x in "
         f"{time.perf_counter() - t0:.1f}s")
     return events
@@ -700,9 +716,7 @@ def phase_main_path(card: str, wl: str, events):
     from paragraph_tpu_torch.align.native import native_available
     from paragraph_tpu_torch.ops.multi_sw import paired_fill
     from paragraph_tpu_torch.pipeline.multigrmpy import run
-
-    sys.path.insert(0, ROOT)
-    from bench_e2e import check_truth
+    from paragraph_tpu_torch.tools.bench_e2e import check_truth
 
     native = native_available()
     say(f"[main] native traceback library loaded: {native}")
@@ -738,7 +752,7 @@ def phase_main_path(card: str, wl: str, events):
         f"[{card}]")
     if unexpected:
         raise AssertionError(f"unexpected misses: {unexpected[:5]}")
-    return launches
+    return launches, len(events) / elapsed
 
 
 # ---------------------------------------------------------------- phase 5
@@ -938,9 +952,7 @@ def _check_against_truth(label: str, opts, manifest, results, events):
     truth of the first len(results) events."""
     from paragraph_tpu_torch.pipeline.vcfupdate import (
         read_grmpy, update_vcf_from_grmpy)
-
-    sys.path.insert(0, ROOT)
-    from bench_e2e import check_truth
+    from paragraph_tpu_torch.tools.bench_e2e import check_truth
 
     out_json = os.path.join(opts.output, "genotypes.json.gz")
     with gzip.open(out_json, "wt", compresslevel=2) as f:
@@ -1239,34 +1251,56 @@ def phase_kbench(card: str, clock_hz: float):
 def _pop_events(wl: str):
     """The planted events of a complete population workload in `wl`, or
     None."""
-    truth = os.path.join(wl, "truth.json")
-    if not os.path.isfile(truth):
-        return None
-    with open(truth) as f:
-        events = json.load(f)
-    if len(events) != POP_EVENTS or len(events[0].get("gts", {})) \
-            != POP_SAMPLES:
-        return None
-    return events
+    from paragraph_tpu_torch.tools.bench_population import workload_events
+
+    return workload_events(wl, POP_EVENTS, POP_SAMPLES)
 
 
 def start_pop_workload(wl: str):
-    """Start generating phase 11's workload into `wl` in a subprocess
-    (make_workload uses the JAX package's BGZF reader); returns the
-    process, or None when a complete one is there."""
+    """Start generating phase 11's workload into `wl` in a subprocess, as
+    bench_population does (make_workload uses the JAX package's BGZF
+    reader); returns the process, or None when a complete one is there."""
+    from paragraph_tpu_torch.tools import bench_e2e, bench_population
+
     if _pop_events(wl) is not None:
         return None
-    env = dict(os.environ)
-    env["PYTHONPATH"] = os.pathsep.join(
-        [ROOT] + [p for p in [env.get("PYTHONPATH")] if p])
-    code = ("import sys; sys.path.insert(0, sys.argv[1]); "
-            "from make_workload import generate; "
-            "generate(sys.argv[2], n_events=int(sys.argv[3]), "
-            "seed=int(sys.argv[4]), n_samples=int(sys.argv[5]))")
-    return subprocess.Popen(
-        [sys.executable, "-c", code, os.path.join(ROOT, "tests", "tools"),
-         wl, str(POP_EVENTS), str(POP_SEED), str(POP_SAMPLES)],
-        cwd=ROOT, env=env, stdout=subprocess.DEVNULL)
+    return bench_e2e.start_generator(bench_population.generator_argv(
+        wl, POP_EVENTS, POP_SAMPLES, POP_SEED))
+
+
+def bench_e2e_workload() -> str:
+    """The end-to-end bench's workload directory under BENCH_TMP."""
+    from paragraph_tpu_torch.tools.bench_e2e import default_workload
+
+    return default_workload(BENCH_E2E_EVENTS, BENCH_E2E_SEED, BENCH_TMP)
+
+
+def start_bench_workload():
+    """Start generating phase 14's end-to-end workload at the bench's
+    path, as the bench itself would, in a subprocess; returns the
+    process, or None when a complete one is there."""
+    from paragraph_tpu_torch.tools import bench_e2e
+
+    wl = bench_e2e_workload()
+    if bench_e2e.workload_events(wl, BENCH_E2E_EVENTS) is not None:
+        return None
+    os.makedirs(BENCH_TMP, exist_ok=True)
+    return bench_e2e.start_generator(bench_e2e.generator_argv(
+        wl, BENCH_E2E_EVENTS, BENCH_E2E_SEED))
+
+
+def finish_bench_workload(proc) -> None:
+    """Wait for start_bench_workload's process."""
+    if proc is None:
+        say(f"[workload] reusing {bench_e2e_workload()}")
+        return
+    t0 = time.perf_counter()
+    rc = proc.wait(timeout=900)
+    if rc != 0:
+        raise RuntimeError(f"bench workload generation: rc {rc}")
+    say(f"[workload] bench workload ({BENCH_E2E_EVENTS} events, seed "
+        f"{BENCH_E2E_SEED}) ready; waited {time.perf_counter() - t0:.1f}s "
+        f"for it")
 
 
 def finish_pop_workload(proc, wl: str):
@@ -1320,13 +1354,11 @@ def _confident_calls_match(host_json: str, device_json: str) -> int:
 
 def phase_population(card: str, wl: str, events):
     """multigrmpy over the population workload with gt_engine="auto" (the
-    device engine) and "host"; returns the paired kernel's launches in
-    the auto run."""
+    device engine) and "host"; returns the auto run's SV x sample/s,
+    confident calls and correct confident calls."""
     from paragraph_tpu_torch.ops.multi_sw import paired_fill
     from paragraph_tpu_torch.pipeline.multigrmpy import run
-
-    sys.path.insert(0, ROOT)
-    from bench_population import score_population
+    from paragraph_tpu_torch.tools.bench_population import score_population
 
     samples = sorted(events[0]["gts"])
     outs, stats, secs = {}, {}, {}
@@ -1377,7 +1409,7 @@ def phase_population(card: str, wl: str, events):
         f"{auto['gt_device_call_s']:.4f}s in the run (the process's first), "
         f"{_warm_model_call_s(auto['gt_device_jobs']) * 1e3:.3f} ms warm "
         f"[{card}]")
-    return launches
+    return (len(events) * len(samples) / secs["auto"], *acc["auto"])
 
 
 def _warm_model_call_s(n: int) -> float:
@@ -1725,6 +1757,120 @@ def phase_sharding(card: str, wl: str, events) -> None:
         f"one card, so no speed over several cards is measured")
 
 
+# --------------------------------------------------------------- phase 14
+
+
+def _run_bench():
+    """(exit code, stdout, stderr) of python -m
+    paragraph_tpu_torch.tools.bench on the card with TMPDIR=BENCH_TMP, in
+    a session of its own so that a timeout stops its children too."""
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "paragraph_tpu_torch.tools.bench"], cwd=ROOT,
+        env=dict(os.environ, TMPDIR=BENCH_TMP), stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True, start_new_session=True)
+    try:
+        out, err = proc.communicate(timeout=BENCH_TIMEOUT_S)
+    except subprocess.TimeoutExpired:
+        os.killpg(proc.pid, signal.SIGKILL)
+        proc.communicate()
+        raise AssertionError(f"tools/bench.py took over {BENCH_TIMEOUT_S}s")
+    return proc.returncode, out, err
+
+
+def _bench_dispatch_alone(card: str, n_reads: int, clock_hz: float):
+    """K1 alone on tools/bench.py's dispatch, in this process: kernel ==
+    plain, both timed, with the bound; returns the JAX bench's cells of
+    the dispatch and the kernel's ms."""
+    from paragraph_tpu_torch.ops.multi_sw import (paired_fill,
+                                                  paired_fill_reference)
+    from paragraph_tpu_torch.tools import bench, kbench
+
+    sw, reads = kbench.build(n_reads=n_reads, device="cuda")
+    tables, _ = kbench.bench_tables(sw, reads)
+    _compare(paired_fill, paired_fill_reference, tables, "bench dispatch")
+    kernel_ms, plain_ms = _time_fill(paired_fill, paired_fill_reference,
+                                     tables, 10)
+    bound_ms, bound_by = fill_bound(tables, clock_hz)
+    cells = bench.paired_cells(sw, reads)
+    say(f"[bench] K1 alone on that dispatch ({tables.col_idx.shape[0]} "
+        f"lanes, {cells} cells by the JAX bench's count): kernel == plain; "
+        f"kernel {kernel_ms:.3f} ms ({cells / kernel_ms / 1e9:.4g} "
+        f"Tcells/s), bound {bound_ms:.3f} ms ({bound_by}), plain "
+        f"{plain_ms:.1f} ms [{card}]")
+    return cells, kernel_ms
+
+
+def phase_bench(card: str, main_sv_s: float, pop, clock_hz: float) -> None:
+    """Phase 14: the port's bench harnesses on the card, their population
+    run held to phase 11's auto run (`pop`: SV x sample/s, confident
+    calls, correct ones), and K1 alone on the bench's dispatch."""
+    import torch
+
+    from paragraph_tpu_torch.tools.bench_population import default_workload
+
+    t_start = time.perf_counter()
+    pop_wl = default_workload(POP_EVENTS, POP_SAMPLES, POP_SEED, BENCH_TMP)
+    if not os.path.lexists(pop_wl):
+        # the same generator and arguments as phase 11's workload
+        os.symlink(POP_WORKLOAD, pop_wl)
+    rc, out, err = _run_bench()
+    try:
+        line = json.loads(out.strip().splitlines()[-1])
+    except (ValueError, IndexError):
+        raise AssertionError(f"tools/bench.py printed no line (rc {rc}): "
+                             f"{err[-2000:]}")
+    if rc != 0 or line.get("failed"):
+        raise AssertionError(f"tools/bench.py failed (rc {rc}): {line}; "
+                             f"{err[-2000:]}")
+    if line["path"] != "cuda" or line["value"] <= 0 \
+            or line["platform"] != torch.cuda.get_device_name(0):
+        raise AssertionError(f"tools/bench.py: not the card's result: "
+                             f"{line}")
+    say(f"[bench] line {json.dumps(line)}")
+    ks = line["kernel_stats"]
+    cells, kernel_ms = _bench_dispatch_alone(card, line["batch_reads"],
+                                             clock_hz)
+    say(f"[bench] cells/s {line['value']:.6g} on {line['batch_reads']} "
+        f"reads (issued {ks['cells'] // ks['dispatches']} per dispatch), "
+        f"best of {line['dispatches']} rounds of 5 dispatches: "
+        f"{cells / line['value'] * 1e3:.3f} ms per dispatch against "
+        f"{kernel_ms:.3f} for K1 alone; over its "
+        f"{ks['dispatches']} "
+        f"dispatches (warm-up included) tables "
+        f"{ks['tables_s'] / ks['dispatches']:.4f}s, put "
+        f"{ks['put_s'] / ks['dispatches']:.4f}s, device wait "
+        f"{ks['device_wait_s'] / ks['dispatches']:.4f}s per dispatch "
+        f"[{card}]")
+    e2e = line.get("e2e_detail")
+    if e2e is None or line.get("sv_genotyping_throughput_30x") is None:
+        raise AssertionError(f"end-to-end bench: {line.get('e2e_error')}")
+    if e2e["unexpected_misses"] != 0:
+        raise AssertionError(f"end-to-end bench: {e2e}")
+    say(f"[bench] SV/s {line['sv_genotyping_throughput_30x']} "
+        f"({e2e['events']} events in {e2e['elapsed_s']}s, seed "
+        f"{BENCH_E2E_SEED}; phase 4 in this "
+        f"call: {main_sv_s:.2f}); accuracy {e2e['genotype_accuracy']}, "
+        f"unexpected misses 0, peak device memory "
+        f"{e2e['peak_device_mb']} MiB; stage seconds {e2e['stage_s']} "
+        f"[{card}]")
+    detail = line.get("population_detail")
+    if detail is None or line.get("sv_sample_throughput") is None:
+        raise AssertionError(
+            f"population bench: {line.get('population_error')}")
+    pop_rate, n_conf, n_ok = pop
+    want = (n_conf, round(n_ok / n_conf, 4))
+    got = (detail["confident_calls"], detail["confident_accuracy"])
+    if got != want:
+        raise AssertionError(f"population bench: confident calls and "
+                             f"accuracy {got}, phase 11 {want}")
+    say(f"[bench] SV x sample/s {line['sv_sample_throughput']} (phase 11 "
+        f"in this call: {pop_rate:.2f}); confident calls {got[0]}, "
+        f"accuracy {got[1]} (== phase 11); device engine jobs "
+        f"{detail['gt_device_jobs']} in {detail['gt_device_call_s']}s; "
+        f"stage seconds {detail['stage_s']} [{card}]")
+    say(f"[bench] phase 14 took {time.perf_counter() - t_start:.1f}s")
+
+
 def main() -> int:
     import logging
 
@@ -1738,6 +1884,7 @@ def main() -> int:
     t_start = time.perf_counter()
     card = phase_device()
     pop_proc = start_pop_workload(POP_WORKLOAD)
+    bench_proc = start_bench_workload()
     try:
         phase_build()
         clock_hz = sm_clock_hz()
@@ -1745,13 +1892,15 @@ def main() -> int:
         err = phase_kernel_cases(card, clock_hz)
         events = ensure_workload(WORKLOAD)
         pop_events = finish_pop_workload(pop_proc, POP_WORKLOAD)
+        finish_bench_workload(bench_proc)
     finally:
-        if pop_proc is not None and pop_proc.poll() is None:
-            pop_proc.kill()
-            pop_proc.wait()
+        for proc in (pop_proc, bench_proc):
+            if proc is not None and proc.poll() is None:
+                proc.kill()
+                proc.wait()
     err_full, kernel_ms, plain_ms, k1_tables = phase_full_dispatch(
         card, WORKLOAD, clock_hz)
-    launches = phase_main_path(card, WORKLOAD, events)
+    launches, main_sv_s = phase_main_path(card, WORKLOAD, events)
     phase_cuda_equals_cpu(card, WORKLOAD, events)
     opts, descs = _first_events_graphs(WORKLOAD, events, PER_EVENT_EVENTS)
     g_err, g_ms, g_plain_ms, k3_tables = phase_graph_kernel(card, opts,
@@ -1760,12 +1909,13 @@ def main() -> int:
     phase_paragraph_cli(card, WORKLOAD, opts, descs[:CLI_EVENTS])
     m_err, m_launches, m_ms, m_plain_ms, k2_tables = phase_multi_kernel(card)
     k4 = phase_kbench(card, clock_hz)
-    phase_population(card, POP_WORKLOAD, pop_events)
+    pop = phase_population(card, POP_WORKLOAD, pop_events)
     mp_launches = phase_multiparagraph(card, WORKLOAD, events)
     say(f"[launches] graph_sw: {g_launches} on phase 7 (per-event path), "
         f"{mp_launches} on phase 12 (multiparagraph)")
     phase_sharding(card, WORKLOAD, events)
-    say(f"[smoke] phases 1-13 took {time.perf_counter() - t_start:.1f}s")
+    phase_bench(card, main_sv_s, pop, clock_hz)
+    say(f"[smoke] phases 1-14 took {time.perf_counter() - t_start:.1f}s")
 
     import torch
 

@@ -648,3 +648,46 @@ def test_multiparagraph_on_cuda_matches_cpu(cuda_device, tmp_path):
     assert len(outs["cuda"]) == 4
     assert json.dumps(outs["cuda"], sort_keys=True) == json.dumps(
         outs["cpu"], sort_keys=True)
+
+
+@pytest.mark.cuda
+def test_bench_device_on_the_card(cuda_device):
+    """tools/bench.py's bench_device on the card at 256 reads: the JAX
+    bench's cell count (reads x 2 x both directions' columns x 160 rows),
+    a positive rate and 1 + 2 x DEPTH paired launches; then a worker run
+    on the CPU (in this process), or with no card visible, is refused
+    for the card."""
+    import contextlib
+    import io
+    import os
+    import subprocess
+    import sys
+
+    from paragraph_tpu_torch.tools import bench
+
+    g, reads = bench.build_case(n_reads=256)
+    sw = msw.PairedGraphSW([g], device="cpu")   # the graph's arrays
+    a = sw.chunk_arrays[0]
+    want = 256 * 2 * (a.col_len[0] + a.col_len[1]) * 160
+    assert bench.paired_cells(sw, reads) == want
+    before = msw.paired_fill.launches
+    rate, secs = bench.bench_device(g, reads, repeats=2, device=cuda_device)
+    assert msw.paired_fill.launches - before == 1 + 2 * bench.DEPTH
+    assert rate > 0 and rate * secs == pytest.approx(want, rel=1e-9)
+
+    out, err = io.StringIO(), io.StringIO()
+    with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+        assert bench.device_worker("cpu", n_reads=16) == 0
+    result, why = bench.parse_worker(out.getvalue(), err.getvalue(), 0,
+                                     "cuda")
+    assert result is None and "platform cpu" in why
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    hidden = subprocess.run(
+        [sys.executable, "-m", "paragraph_tpu_torch.tools.bench",
+         "--device-worker", "--device", "cuda"], cwd=root,
+        capture_output=True, text=True, timeout=300,
+        env={**os.environ, "CUDA_VISIBLE_DEVICES": ""})
+    result, why = bench.parse_worker(hidden.stdout, hidden.stderr,
+                                     hidden.returncode, "cuda")
+    assert hidden.returncode != 0 and result is None
+    assert "torch.cuda.is_available() is false" in why

@@ -2,13 +2,17 @@
 
 A static scan of every import statement (function bodies included) in
 the port's modules, in chip_smoke.py and in the multi-host worker
-(tests/test_torch_multihost.py, its tests left out), and a subprocess whose import system
-refuses ``jax`` and ``paragraph_tpu``: it imports every module of the
+(tests/test_torch_multihost.py, its tests left out) for ``jax``,
+``paragraph_tpu`` and the JAX project's root bench scripts (``bench``,
+``bench_e2e``, ``bench_population``), and a subprocess whose import
+system refuses all five: it imports every module of the
 port, runs the ablation harness's plain fill on a tiny case, a 2-event
 grmpy, the ``paragraph``, ``idxdepth``, ``vcf2paragraph`` and
 ``multiparagraph`` tools, the sharded scorer on a 2-entry mesh, the edge
 count merge, graft_entry.entry under the profiling hook, the host
-profiler and the multi-host worker (a group of one) on the CPU over a
+profiler, the multi-host worker (a group of one), the end-to-end bench
+harness with its scoring and the population scoring, and the cells/s
+harness's bench_device on the plain fill, on the CPU over a
 workload made by the repo's generator (in this process, since the
 generator uses the JAX package's BGZF reader), and checks that the
 outputs came back.
@@ -25,7 +29,10 @@ import pytest
 sys.path.insert(0, os.path.join(os.path.dirname(__file__), "tools"))
 
 ROOT = Path(__file__).resolve().parent.parent
-FORBIDDEN = ("jax", "paragraph_tpu")
+#: jax, the JAX package and the JAX project's root bench scripts, whose
+#: scoring the port keeps its own copy of (tools/bench*.py)
+FORBIDDEN = ("jax", "paragraph_tpu", "bench", "bench_e2e",
+             "bench_population")
 
 
 def _sources():
@@ -34,8 +41,8 @@ def _sources():
 
 
 def _forbidden_imports(path: Path, skip_tests: bool = False):
-    """(line, module) of every absolute import of jax or paragraph_tpu;
-    with `skip_tests`, outside the bodies of the test_* functions."""
+    """(line, module) of every absolute import of a FORBIDDEN root; with
+    `skip_tests`, outside the bodies of the test_* functions."""
     tree = ast.parse(path.read_text(), str(path))
     if skip_tests:
         tree.body = [n for n in tree.body if not (
@@ -59,9 +66,12 @@ def test_scan_finds_the_imports_it_looks_for(tmp_path):
     probe.write_text("import os\nfrom . import x\n"
                      "def f():\n    import jax.numpy\n"
                      "    from paragraph_tpu.io import bam\n"
-                     "import paragraph_tpu_torch\n")
+                     "    from bench_e2e import check_truth\n"
+                     "import paragraph_tpu_torch\n"
+                     "from paragraph_tpu_torch.tools import bench\n")
     assert _forbidden_imports(probe) == [(4, "jax.numpy"),
-                                         (5, "paragraph_tpu.io")]
+                                         (5, "paragraph_tpu.io"),
+                                         (6, "bench_e2e")]
 
 
 @pytest.mark.parametrize("path", _sources(),
@@ -85,7 +95,8 @@ import importlib, importlib.abc, json, pkgutil, sys
 
 class Refuse(importlib.abc.MetaPathFinder):
     def find_spec(self, name, path=None, target=None):
-        if name.split(".")[0] in ("jax", "paragraph_tpu"):
+        if name.split(".")[0] in ("jax", "paragraph_tpu", "bench",
+                                  "bench_e2e", "bench_population"):
             raise ImportError(f"refused: {name}")
         return None
 
@@ -153,15 +164,31 @@ import test_torch_multihost
 assert test_torch_multihost.worker(
     [f"file://{out_dir}/rdv", "0", "1", wl, f"{out_dir}/multihost.json",
      "cpu"]) == 0
+from paragraph_tpu_torch.tools import bench, bench_e2e, bench_population
+assert bench_e2e.main(["--events", "2", "--workload", wl, "--device",
+                       "cpu"]) == 0
+with open(f"{wl}/truth.json") as f:
+    truth = json.load(f)
+n_ok, misses = bench_e2e.check_truth(f"{wl}/out_bench/genotypes.vcf.gz",
+                                     f"{wl}/out_bench/genotypes.json.gz",
+                                     truth)
+recall = bench_e2e.per_kind_recall(truth, misses)
+pop = bench_population.score_population(
+    f"{wl}/out_bench/genotypes.vcf.gz", truth, ["sample"])
+bench_g, bench_reads = bench.build_case(read_len=30, n_reads=4)
+cells_per_s, _ = bench.bench_device(bench_g, bench_reads, repeats=1,
+                                    device="cpu")
 loaded = sorted(m for m, v in sys.modules.items() if v is not None
-                and m.split(".")[0] in ("jax", "paragraph_tpu"))
+                and m.split(".")[0] in ("jax", "paragraph_tpu", "bench",
+                                        "bench_e2e", "bench_population"))
 print(json.dumps({"modules": len(names), "fills": fills,
                   "loaded": loaded,
                   "sharded": [int(p[0][0].max()) for p in sharded],
                   "edges": merged_edge_counts(
                       [cpu] * 2, [[1, 0], [1, 1]]).tolist(),
                   "entry_min": int(entry_scores.min()),
-                  "traces": len(os.listdir(f"{out_dir}/profile/isolated"))}))
+                  "traces": len(os.listdir(f"{out_dir}/profile/isolated")),
+                  "bench": [n_ok, sorted(recall), pop, cells_per_s > 0]}))
 """
 
 
@@ -218,3 +245,6 @@ def test_port_runs_with_jax_and_the_jax_package_refused(workload, tmp_path):
     assert summary["entry_min"] > 0 and summary["traces"] == 1
     merged = json.loads((tmp_path / "multihost.json").read_text())
     assert len(merged) == 2 and all("samples" in r for r in merged)
+    # the bench harnesses' scoring on their own 2-event run, and K1's
+    # bench case on the plain fill
+    assert summary["bench"] == [2, ["DEL", "INS"], [2, 2], True]
