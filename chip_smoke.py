@@ -743,12 +743,14 @@ def phase_main_path(card: str, wl: str, events):
         f"{len(events) / elapsed:.2f} SV/s; correct {n_ok}/{len(events)}, "
         f"misses {len(misses)} (unexpected {len(unexpected)}); "
         f"peak device memory {peak / 2**20:.1f} MiB [{card}]")
-    wait = stats["device_wait_s"]
+    k1_s = stats["k1_s"]
     say(f"[main] kernel launches={launches} dispatches={stats['dispatches']}"
-        f" cells={stats['cells']} lanes={stats['lanes']} "
-        f"device_wait={wait:.3f}s tables={stats['tables_s']:.3f}s "
+        f" cells={stats['cells']} k1={k1_s:.3f}s "
+        f"device_wait={stats['device_wait_s']:.3f}s "
+        f"tables={stats['tables_s']:.3f}s "
         f"put={stats['put_s']:.3f}s call={stats['call_s']:.3f}s "
-        f"cells_per_wait_s={stats['cells'] / wait if wait else 0:.4g} "
+        f"slice={stats['slice_s']:.3f}s "
+        f"cells_per_k1_s={stats['cells'] / k1_s if k1_s else 0:.4g} "
         f"[{card}]")
     if unexpected:
         raise AssertionError(f"unexpected misses: {unexpected[:5]}")
@@ -1001,12 +1003,12 @@ def phase_per_event(card: str, wl: str, events, opts, descs):
         f"{elapsed:.2f}s = {len(descs) / elapsed:.2f} SV/s; graph_sw "
         f"launches={launches} (2 x {with_reads} (event, sample) pairs with "
         f"reads), paired_sw launches={paired} [{card}]")
-    wait = stats.get("device_wait_s", 0.0)
     say(f"[per-event] stats: dispatches={stats.get('dispatches')} "
-        f"cells={stats.get('cells')} lanes={stats.get('lanes')} "
-        f"device_wait={wait:.3f}s tables={stats.get('tables_s', 0):.3f}s "
+        f"cells={stats.get('cells')} k3={stats.get('k1_s', 0):.3f}s "
+        f"device_wait={stats.get('device_wait_s', 0):.3f}s "
+        f"tables={stats.get('tables_s', 0):.3f}s "
         f"put={stats.get('put_s', 0):.3f}s call={stats.get('call_s', 0):.3f}s"
-        f" dispatch_host={stats.get('dispatch_host_s', 0):.3f}s [{card}]")
+        f" slice={stats.get('slice_s', 0):.3f}s [{card}]")
     if launches != 2 * with_reads or paired != 0 \
             or stats.get("dispatches") != launches:
         raise AssertionError(

@@ -154,6 +154,7 @@ def cmd_grmpy(argv):
     """grmpy equivalent (graphs + manifest → genotypes.json)."""
     from ..genotyping.sample_info import load_manifest
     from ..pipeline.grmpy import GrmpyParameters, run_grmpy
+    from ..pipeline.parallel_grmpy import log_stages
 
     p = argparse.ArgumentParser("grmpy")
     p.add_argument("-r", "--reference", required=True)
@@ -193,8 +194,11 @@ def cmd_grmpy(argv):
         progress=args.progress,
         gt_engine=args.genotyping_engine,
     )
+    kernel_stats: dict = {}
     results = run_grmpy(graphs, args.reference, manifest, gt_params,
-                        parameters, device=args.device)
+                        parameters, device=args.device,
+                        kernel_stats=kernel_stats)
+    log_stages(kernel_stats)
     with _open_out(args.output_file) as f:
         json.dump(results, f, sort_keys=True, indent=2)
     return 0

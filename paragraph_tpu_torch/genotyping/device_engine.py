@@ -17,11 +17,11 @@ Selected with ``--genotyping-engine device``, or by ``auto`` for runs of
 """
 from __future__ import annotations
 
-import time
 from typing import Dict, List, Optional
 
 import numpy as np
 
+from ..utils.profiling import span
 from .batched import model_from_parameters
 from .genotype import Genotype
 
@@ -85,7 +85,7 @@ def genotype_events_on_device(genotypers: List, device="cuda",
             grp["jobs"].append((ei, job))
 
     per_event: List[Dict[tuple, Genotype]] = [dict() for _ in genotypers]
-    n_jobs, call_s = 0, 0.0
+    n_jobs, timing = 0, {"gt_device_call_s": 0.0}
     for grp in groups.values():
         param = grp["param"]
         jobs = grp["jobs"]
@@ -105,11 +105,10 @@ def genotype_events_on_device(genotypers: List, device="cuda",
             rlen[k] = bp.read_length
             dsd[k] = bp.depth_sd
             poisson[k] = bp.use_poisson_depth
-        t0 = time.perf_counter()
-        out = sharded_population_genotyping(
-            mesh, counts, depth, rlen, dsd, poisson, model,
-            min_pass_gq=param.min_pass_gq)
-        call_s += time.perf_counter() - t0
+        with span("genotype.device_call", timing, "gt_device_call_s"):
+            out = sharded_population_genotyping(
+                mesh, counts, depth, rlen, dsd, poisson, model,
+                min_pass_gq=param.min_pass_gq)
         for k, (ei, (samplename, bp_name, _, _, _)) in enumerate(jobs):
             per_event[ei][(samplename, bp_name)] = _genotype_from_row(
                 out, k, model["gts"])
@@ -117,4 +116,4 @@ def genotype_events_on_device(genotypers: List, device="cuda",
 
     for gtr, results in zip(genotypers, per_event):
         gtr.install_genotypes(results)
-    add_stats(stats, {"gt_device_jobs": n_jobs, "gt_device_call_s": call_s})
+    add_stats(stats, {"gt_device_jobs": n_jobs, **timing})

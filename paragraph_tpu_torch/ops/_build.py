@@ -155,12 +155,13 @@ def blocks_per_sm(kernel: str, M: int, lanes_per_block: int,
 
 
 def launch(fn_name: str, dev, scratch_words: int, n_lanes: int, inputs,
-           ints):
+           ints, events=None):
     """Launch one kernel of the library on dev's current stream: the C
     entry point takes `inputs` (tensors as pointers, ints as they are),
     an int32 scratch of `scratch_words` and the [4, n_lanes] int32
-    output, then `ints` and the stream. Returns the output; raises if the
-    launch is refused."""
+    output, then `ints` and the stream. `events`, a (start, end) pair of
+    CUDA events, is recorded on the stream just around the entry point.
+    Returns the output; raises if the launch is refused."""
     import torch
 
     scratch = torch.empty(scratch_words, dtype=torch.int32, device=dev)
@@ -169,9 +170,14 @@ def launch(fn_name: str, dev, scratch_words: int, n_lanes: int, inputs,
     args = [x.data_ptr() if isinstance(x, torch.Tensor) else x
             for x in inputs]
     with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
+        stream = torch.cuda.current_stream(dev)
+        if events is not None:
+            events[0].record(stream)
         err = getattr(lib, fn_name)(*args, scratch.data_ptr(),
-                                    out.data_ptr(), *ints, stream)
+                                    out.data_ptr(), *ints,
+                                    stream.cuda_stream)
+        if events is not None:
+            events[1].record(stream)
     if err:
         raise RuntimeError(f"{fn_name} failed: {error_string(lib, err)}")
     return out

@@ -22,13 +22,14 @@ and the multi-node flag (alignsEndAtMultNodes).
 """
 from __future__ import annotations
 
-import time
 from dataclasses import dataclass
 from typing import List, Sequence, Tuple
 
 import numpy as np
 
 from ..graph.model import SequenceGraph
+from ..utils.profiling import (dispatch_serials, kernel_seconds, span,
+                               timing_events)
 
 from . import _build
 from .batched_sw import GraphArrays, encode_blob, encode_reads, pack_bits
@@ -605,14 +606,15 @@ def band_cols_of(t, M: int) -> int:
 
 
 def paired_fill(t: FillTables, gap_open: int = 6, gap_extend: int = 1,
-                match: int = 1, mismatch: int = 4):
+                match: int = 1, mismatch: int = 4, events=None):
     """The paired fill: [4, B] int32 on t's device.
 
     On CUDA tensors this launches the kernel of ops/csrc/paired_sw.cu on
     the current stream (built at first use, see ops/_build.py) and raises
     on anything it cannot take; on CPU tensors it runs
     paired_fill_reference. ``paired_fill.launches`` counts kernel
-    launches.
+    launches. `events`, a (start, end) pair of CUDA events, is recorded
+    around the launch (``_build.launch``).
     """
     dev = t.device
     if dev.type == "cpu":
@@ -634,7 +636,7 @@ def paired_fill(t: FillTables, gap_open: int = 6, gap_extend: int = 1,
          t.tile_event, t.base_codes_t, t.base_lens, t.base_vlens,
          t.col_idx, t.col_idx.element_size(), t.flip, t.comp],
         [B, TB, N, P, M, Bb, band_cols, WARP_LANES_PER_CTA, grid, gap_open,
-         gap_extend, match, mismatch])
+         gap_extend, match, mismatch], events)
     paired_fill.launches += 1
     return out
 
@@ -729,6 +731,19 @@ def multi_fill(t: MultiFillTables, gap_open: int = 6, gap_extend: int = 1,
 multi_fill.launches = 0
 
 
+def scorer_stats() -> dict:
+    """A scorer's counters, zeroed: dispatches and issued DP cells; the
+    host's seconds building tables (``tables_s``), queueing the copies
+    (``put_s``), launching (``call_s``), blocked on the output's fetch
+    (``device_wait_s``: the kernel being fetched and whatever the stream
+    ran before it) and slicing the outputs (``slice_s``); and the
+    kernel's own device seconds, by CUDA events around each launch
+    (``k1_s``, 0.0 off a card)."""
+    return {"dispatches": 0, "cells": 0, "tables_s": 0.0, "put_s": 0.0,
+            "call_s": 0.0, "device_wait_s": 0.0, "slice_s": 0.0,
+            "k1_s": 0.0}
+
+
 def pair_graph_arrays(graphs: Sequence[SequenceGraph]):
     """(forward, reversed) GraphArrays of each pair's graph, built once
     for a graph listed several times (one graph per sample of an
@@ -788,9 +803,7 @@ class PairedGraphSW:
         """Build each chunk's arrays and put its graph tensors on its
         device (chunk k on devices[k]), once for every dispatch."""
         #: per-run observability, read by the orchestrator's [kernel] line
-        self.stats = {"dispatches": 0, "cells": 0, "lanes": 0,
-                      "device_wait_s": 0.0, "dispatch_host_s": 0.0,
-                      "tables_s": 0.0, "put_s": 0.0, "call_s": 0.0}
+        self.stats = scorer_stats()
         self.chunk_pairs = chunk_pairs
         self.chunk_arrays: List[MultiGraphArrays] = []
         self._chunk_dev = []
@@ -803,34 +816,29 @@ class PairedGraphSW:
             self._chunk_dev.append(graph_tensors(a, device))
 
     def _dispatch(self, chunk_i: int, reads_per_pair):
-        t_host = time.perf_counter()
-        a = self.chunk_arrays[chunk_i]
-        t = build_pair_tables(a, reads_per_pair, TILE_LANES)
-        t0 = time.perf_counter()
-        self.stats["tables_s"] += t0 - t_host
-        packed_cols, pred_tables = self._chunk_dev[chunk_i]
-        tables = dispatch_tables(t, packed_cols, pred_tables,
-                                 packed_cols.device)
-        t1 = time.perf_counter()
-        self.stats["put_s"] += t1 - t0
-        out = paired_fill(tables)
-        t2 = time.perf_counter()
-        self.stats["call_s"] += t2 - t1
+        serial = next(dispatch_serials)
+        with span("scorer.tables", self.stats, "tables_s", serial):
+            t = build_pair_tables(self.chunk_arrays[chunk_i],
+                                  reads_per_pair, TILE_LANES)
+        with span("scorer.put", self.stats, "put_s", serial):
+            packed_cols, pred_tables = self._chunk_dev[chunk_i]
+            tables = dispatch_tables(t, packed_cols, pred_tables,
+                                     packed_cols.device)
+        events = timing_events(packed_cols.device)
+        with span("scorer.launch", self.stats, "call_s", serial):
+            out = paired_fill(tables, events=events)
         self.stats["dispatches"] += 1
         self.stats["cells"] += int(
             t["tile_col_len"].astype(np.int64).sum()) * TILE_LANES \
             * t["m"]
-        self.stats["lanes"] += len(t["col_idx"])
-        self.stats["dispatch_host_s"] += t2 - t_host
-        return out, t["layout"]
+        return out, t["layout"], serial, events
 
     def score_pairs_device(self, reads_per_pair):
         """Launch every chunk without fetching; finalize_pairs() later."""
         pending = []
         for chunk_i, idxs in enumerate(self.chunk_pairs):
-            out, layout = self._dispatch(
-                chunk_i, [reads_per_pair[p] for p in idxs])
-            pending.append((chunk_i, idxs, out, layout))
+            pending.append((chunk_i, idxs, *self._dispatch(
+                chunk_i, [reads_per_pair[p] for p in idxs])))
         return pending, len(reads_per_pair)
 
     def score_pairs(self, reads_per_pair):
@@ -843,23 +851,26 @@ class PairedGraphSW:
     def finalize_pairs(self, handle):
         pending, n_pairs = handle
         results = [None] * n_pairs
-        t0 = time.perf_counter()
-        vals_list = [out.cpu().numpy() for _, _, out, _ in pending]
-        self.stats["device_wait_s"] += time.perf_counter() - t0
-        for (chunk_i, idxs, _, layout), vals in zip(pending, vals_list):
-            slice_pair_outputs(self.chunk_arrays[chunk_i], vals, layout,
-                               idxs, results)
+        vals_list = []
+        for _, _, out, _, serial, _ in pending:
+            with span("scorer.fetch", self.stats, "device_wait_s", serial):
+                vals_list.append(out.cpu().numpy())
+        for (chunk_i, idxs, out, layout, serial, events), vals in zip(
+                pending, vals_list):
+            self.stats["k1_s"] += kernel_seconds(out.device, events)
+            with span("scorer.slice", self.stats, "slice_s", serial):
+                slice_pair_outputs(self.chunk_arrays[chunk_i], vals, layout,
+                                   idxs, results)
         return results
 
     def engine_report(self) -> dict:
-        """Issued DP cells, host-blocking device wait and cells per
-        second of that wait. The wait is a lower bound on device time
-        when finalize overlaps host work, so cells_per_wait_s is an
-        upper bound on the fill's throughput."""
-        wait = self.stats["device_wait_s"]
+        """The counters (``scorer_stats``) and the fill's throughput over
+        its own device time: issued cells per second of ``k1_s`` (0.0 off
+        a card)."""
+        k1_s = self.stats["k1_s"]
         return {**self.stats,
-                "cells_per_wait_s": self.stats["cells"] / wait
-                if wait > 0 else 0.0}
+                "cells_per_k1_s": self.stats["cells"] / k1_s
+                if k1_s > 0 else 0.0}
 
 
 class MultiGraphSW:

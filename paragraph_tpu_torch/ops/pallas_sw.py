@@ -17,18 +17,20 @@ scorer there is no score range that needs a second engine.
 """
 from __future__ import annotations
 
-import time
 from dataclasses import dataclass
 from typing import List
 
 import numpy as np
 
 from ..graph.model import SequenceGraph
+from ..utils.profiling import (dispatch_serials, kernel_seconds, span,
+                               timing_events)
 
 from . import _build
 from .batched_sw import GraphArrays, encode_reads
 from .multi_sw import (LANES_PER_BLOCK, TILE_LANES, WARP_LANES_PER_CTA,
-                       _bucket, _to_device, check_tensors, warp_grid)
+                       _bucket, _to_device, check_tensors, scorer_stats,
+                       warp_grid)
 
 _BIG = 2 ** 30
 
@@ -194,13 +196,15 @@ def _check_tables(t: GraphFillTables) -> None:
 
 
 def graph_fill(t: GraphFillTables, gap_open: int = 6, gap_extend: int = 1,
-               match: int = 1, mismatch: int = 4):
+               match: int = 1, mismatch: int = 4, events=None):
     """The single-graph fill: [4, B] int32 on t's device.
 
     On CUDA tensors this launches the kernel of ops/csrc/graph_sw.cu on
     the current stream (built at first use, see ops/_build.py) and raises
     on anything it cannot take; on CPU tensors it runs
     graph_fill_reference. ``graph_fill.launches`` counts kernel launches.
+    `events`, a (start, end) pair of CUDA events, is recorded around the
+    launch (``_build.launch``).
     """
     dev = t.device
     if dev.type == "cpu":
@@ -219,7 +223,7 @@ def graph_fill(t: GraphFillTables, gap_open: int = 6, gap_extend: int = 1,
         [t.ref_codes, t.col_node, t.is_start, t.is_last, t.pred_table,
          t.read_codes_t, t.lens, t.vlens],
         [L, N, P, M, B, WARP_LANES_PER_CTA, grid, gap_open, gap_extend,
-         match, mismatch])
+         match, mismatch], events)
     graph_fill.launches += 1
     return out
 
@@ -255,55 +259,53 @@ class SingleGraphSW:
         self.gap_extend = gap_extend
         self.tile_batch = tile_batch
         self._graph_dev = _graph_tensors(self.arrays, self.device)
-        #: per-run observability, with PairedGraphSW.stats' keys
-        self.stats = {"dispatches": 0, "cells": 0, "lanes": 0,
-                      "device_wait_s": 0.0, "dispatch_host_s": 0.0,
-                      "tables_s": 0.0, "put_s": 0.0, "call_s": 0.0}
+        #: per-run observability, with PairedGraphSW.stats' keys (k1_s
+        #: holds this kernel's, K3's, device seconds)
+        self.stats = scorer_stats()
 
     def score_device(self, reads: List[str], pad_to: int = 0):
         """Launch the fill and return a handle without synchronising;
         finalize() fetches it."""
-        t_host = time.perf_counter()
-        n_real = len(reads)
-        b = _bucket(max(1, n_real), self.tile_batch)
-        reads = list(reads) + ["A"] * (b - n_real)
-        max_len = max(len(r) for r in reads)
-        pad_to = max(pad_to, _bucket(max_len, 32))
-        codes, lens, vlens = encode_reads(reads, pad_to)
-        t0 = time.perf_counter()
-        self.stats["tables_s"] += t0 - t_host
-        tables = GraphFillTables(
-            *self._graph_dev,
-            read_codes_t=_to_device(codes.T.astype(np.int8), self.device),
-            lens=_to_device(lens[None, :], self.device),
-            vlens=_to_device(vlens[None, :], self.device))
-        t1 = time.perf_counter()
-        self.stats["put_s"] += t1 - t0
-        out = graph_fill(tables, self.gap_open, self.gap_extend, self.match,
-                         self.mismatch)
-        t2 = time.perf_counter()
-        self.stats["call_s"] += t2 - t1
+        serial = next(dispatch_serials)
+        with span("scorer.tables", self.stats, "tables_s", serial):
+            n_real = len(reads)
+            b = _bucket(max(1, n_real), self.tile_batch)
+            reads = list(reads) + ["A"] * (b - n_real)
+            max_len = max(len(r) for r in reads)
+            pad_to = max(pad_to, _bucket(max_len, 32))
+            codes, lens, vlens = encode_reads(reads, pad_to)
+        with span("scorer.put", self.stats, "put_s", serial):
+            tables = GraphFillTables(
+                *self._graph_dev,
+                read_codes_t=_to_device(codes.T.astype(np.int8),
+                                        self.device),
+                lens=_to_device(lens[None, :], self.device),
+                vlens=_to_device(vlens[None, :], self.device))
+        events = timing_events(self.device)
+        with span("scorer.launch", self.stats, "call_s", serial):
+            out = graph_fill(tables, self.gap_open, self.gap_extend,
+                             self.match, self.mismatch, events)
         self.stats["dispatches"] += 1
         self.stats["cells"] += len(self.arrays.ref_codes) * b \
             * codes.shape[1]
-        self.stats["lanes"] += b
-        self.stats["dispatch_host_s"] += t2 - t_host
-        return out, n_real
+        return out, n_real, serial, events
 
     def finalize(self, handle):
         """One device-to-host copy of the [4, B] output; the winning
         column maps to (node id, in-node offset) with two host gathers."""
-        out, n_real = handle
-        t0 = time.perf_counter()
-        vals = out.cpu().numpy()
-        self.stats["device_wait_s"] += time.perf_counter() - t0
-        a = self.arrays
-        score, end_col, end_read, multi = vals[:, :n_real]
-        valid = end_col >= 0
-        safe_col = np.where(valid, end_col, 0)
-        end_node = np.where(valid, a.col_node[safe_col], 0).astype(np.int32)
-        end_ref = np.where(
-            valid, a.col_in_node[safe_col], -1).astype(np.int32)
+        out, n_real, serial, events = handle
+        with span("scorer.fetch", self.stats, "device_wait_s", serial):
+            vals = out.cpu().numpy()
+        self.stats["k1_s"] += kernel_seconds(self.device, events)
+        with span("scorer.slice", self.stats, "slice_s", serial):
+            a = self.arrays
+            score, end_col, end_read, multi = vals[:, :n_real]
+            valid = end_col >= 0
+            safe_col = np.where(valid, end_col, 0)
+            end_node = np.where(valid, a.col_node[safe_col],
+                                0).astype(np.int32)
+            end_ref = np.where(
+                valid, a.col_in_node[safe_col], -1).astype(np.int32)
         return score, end_node, end_ref, end_read, multi
 
     def score(self, reads: List[str], pad_to: int = 0):

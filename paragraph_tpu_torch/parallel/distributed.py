@@ -36,7 +36,11 @@ def make_event_mesh(device="cuda", n_devices: Optional[int] = None):
 class ShardedPairedSW(PairedGraphSW):
     """``PairedGraphSW``'s interface (``score_pairs_device``,
     ``finalize_pairs``, ``score_pairs``, ``stats``, ``engine_report``)
-    with pairs sharded over a mesh.
+    with pairs sharded over a mesh. Its counters are the one-device
+    scorer's: ``k1_s`` sums the device seconds of every slot's K1, each
+    timed by CUDA events on its shard's stream, so over several cards it
+    can exceed the wall time; ``engine_report``'s ``cells_per_k1_s`` is
+    then the cells per card-second of K1.
 
     Pairs are packed into slots by the longest-processing-time greedy of
     the JAX code: at least min(S, n_pairs) slots, so that a small batch

@@ -21,6 +21,7 @@ from ..graph.templates import make_graph
 from ..io.regions import parse_region
 from ..io.vcf import VcfReader, VcfWriter
 from .grmpy import GrmpyParameters, run_grmpy
+from .parallel_grmpy import log_stages, pipeline_stage
 from .vcfupdate import read_grmpy, update_vcf_from_grmpy
 
 
@@ -239,21 +240,38 @@ def run(options: MultigrmpyOptions, device="cuda",
         kernel_stats: Optional[dict] = None) -> dict:
     """multigrmpy run (multigrmpy.py:215-343) with scoring on `device`;
     returns the output paths. The scorers' stats are added into
-    `kernel_stats` when given."""
+    `kernel_stats` when given, and the seconds of the job's stages into
+    its `stage_s`: ``load`` (the graph description, the manifest and
+    the input's schema checks), the pipeline's stages where the
+    pipelined path runs, ``write_json`` (the output's schema checks
+    included) and ``vcf_update``."""
+    from ..utils.profiling import maybe_profile
+
     device = resolve_device(device)
-    os.makedirs(options.output, exist_ok=True)
-    graphs = load_graph_description(options)
+    stats = {} if kernel_stats is None else kernel_stats
+    with maybe_profile("grmpy"):
+        out = _run_job(options, device, stats)
+    log_stages(stats)
+    return out
 
-    if options.validate_schemas:
-        from ..utils.schema import validate_graph_input
 
-        for i, g in enumerate(graphs):
-            try:
-                validate_graph_input(g)
-            except Exception as exc:
-                raise type(exc)(f"event {i} ({g.get('ID', '?')}): {exc}")
+def _run_job(options: MultigrmpyOptions, device, kernel_stats: dict
+             ) -> dict:
+    with pipeline_stage(kernel_stats, "load"):
+        os.makedirs(options.output, exist_ok=True)
+        graphs = load_graph_description(options)
 
-    manifest = load_manifest(options.manifest)
+        if options.validate_schemas:
+            from ..utils.schema import validate_graph_input
+
+            for i, g in enumerate(graphs):
+                try:
+                    validate_graph_input(g)
+                except Exception as exc:
+                    raise type(exc)(
+                        f"event {i} ({g.get('ID', '?')}): {exc}")
+
+        manifest = load_manifest(options.manifest)
     parameters = GrmpyParameters(
         threads=options.threads,
         max_reads=options.max_reads_per_event or 10000,
@@ -270,35 +288,35 @@ def run(options: MultigrmpyOptions, device="cuda",
         os.makedirs(alignment_dir, exist_ok=True)
         parameters.alignment_output_folder = alignment_dir
 
-    from ..utils.profiling import maybe_profile
+    results = run_grmpy(graphs, options.reference, manifest,
+                        options.genotyping_parameters, parameters,
+                        device=device, kernel_stats=kernel_stats)
 
-    with maybe_profile("grmpy"):
-        results = run_grmpy(graphs, options.reference, manifest,
-                            options.genotyping_parameters, parameters,
-                            device=device, kernel_stats=kernel_stats)
+    with pipeline_stage(kernel_stats, "write_json"):
+        if options.validate_schemas:
+            from ..utils.schema import validate
 
-    if options.validate_schemas:
-        from ..utils.schema import validate
+            for i, rec in enumerate(results):
+                try:
+                    validate(rec, "genotypes")
+                except Exception as exc:
+                    raise type(exc)(f"genotypes record {i}: {exc}")
 
-        for i, rec in enumerate(results):
-            try:
-                validate(rec, "genotypes")
-            except Exception as exc:
-                raise type(exc)(f"genotypes record {i}: {exc}")
-
-    genotypes_json = os.path.join(options.output, "genotypes.json.gz")
-    with gzip.open(genotypes_json, "wt", compresslevel=2) as f:
-        f.write(json.dumps(results, sort_keys=True, separators=(",", ":")))
+        genotypes_json = os.path.join(options.output, "genotypes.json.gz")
+        with gzip.open(genotypes_json, "wt", compresslevel=2) as f:
+            f.write(json.dumps(results, sort_keys=True,
+                               separators=(",", ":")))
 
     out = {"genotypes_json": genotypes_json}
     if options.input.endswith((".vcf", ".vcf.gz", ".bcf")):
-        sample_names = [s.sample_name for s in manifest]
-        grmpy_output = read_grmpy(results)
-        genotypes_vcf = os.path.join(options.output, "genotypes.vcf.gz")
-        vcf_input = os.path.join(options.output, "variants.vcf.gz")
-        if not os.path.isfile(vcf_input):
-            vcf_input = options.input
-        update_vcf_from_grmpy(vcf_input, grmpy_output, genotypes_vcf,
-                              sample_names)
+        with pipeline_stage(kernel_stats, "vcf_update"):
+            sample_names = [s.sample_name for s in manifest]
+            grmpy_output = read_grmpy(results)
+            genotypes_vcf = os.path.join(options.output, "genotypes.vcf.gz")
+            vcf_input = os.path.join(options.output, "variants.vcf.gz")
+            if not os.path.isfile(vcf_input):
+                vcf_input = options.input
+            update_vcf_from_grmpy(vcf_input, grmpy_output, genotypes_vcf,
+                                  sample_names)
         out["genotypes_vcf"] = genotypes_vcf
     return out

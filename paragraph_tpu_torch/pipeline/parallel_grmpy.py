@@ -32,6 +32,7 @@ from typing import Dict, List, Optional
 import numpy as np
 
 from ..graph.model import SequenceGraph
+from ..utils.profiling import span
 
 logger = logging.getLogger("grmpy")
 
@@ -171,7 +172,7 @@ def run_grmpy_pipelined(graph_descs: List[dict], reference_path: str,
     ``ShardedPairedSW`` when it holds more than one device, else one
     ``PairedGraphSW`` on `device`. The round scorers' stats and the
     device engine's are added into `kernel_stats` when given, and the
-    stage seconds set as its `stage_s`."""
+    stage seconds into its `stage_s`."""
     from .. import resolve_device
     from ..align.batched_aligner import resolve_threads
     from ..align.native import native_available
@@ -244,14 +245,8 @@ def _run_pipeline(ctx, workers, rounds, graph_descs, reference_path,
     from ..ops.multi_sw import PairedGraphSW
     from ..parallel.distributed import ShardedPairedSW
 
-    stage_t: Dict[str, float] = {}
     extract_futs: Dict[int, object] = {}
     analysis_futs: List[Optional[object]] = [None] * n_events
-
-    def _clock(key, t0):
-        now = time.perf_counter()
-        stage_t[key] = stage_t.get(key, 0.0) + now - t0
-        return now
 
     # one single-worker pool per host core: event gi's extraction AND
     # analysis both go to pool gi % W, so the Read objects extracted
@@ -269,28 +264,27 @@ def _run_pipeline(ctx, workers, rounds, graph_descs, reference_path,
 
         def finalize_and_analyze(pending) -> None:
             r, sw, handle = pending
-            t0 = time.perf_counter()
-            scores = None
-            if handle is not None:
-                scores = sw.finalize_pairs(handle)
-                add_stats(kernel_stats, sw.stats)
-            k = 0
-            for gi in rounds[r]:
-                per_sample = []
-                for s in manifest:  # manifest order = output sample order
-                    if s.alignment_data is not None:
-                        per_sample.append((copy.copy(s), False, None))
-                        continue
-                    f_out, r_out = scores[k]
-                    k += 1
-                    per_sample.append((copy.copy(s), True, (
-                        f_out[0], f_out[4], r_out[4],
-                        f_out[1], f_out[2], f_out[3])))
-                analysis_futs[gi] = pools[gi % workers].submit(
-                    _analyze_event, gi, graph_descs[gi], reference_path,
-                    genotyping_parameters, parameters, per_sample,
-                    bam_specs, parameters.max_reads, defer_genotyping)
-            _clock("device_wait+submit", t0)
+            with pipeline_stage(kernel_stats, "device_wait+submit"):
+                scores = None
+                if handle is not None:
+                    scores = sw.finalize_pairs(handle)
+                    add_stats(kernel_stats, sw.stats)
+                k = 0
+                for gi in rounds[r]:
+                    per_sample = []
+                    for s in manifest:  # manifest order = output order
+                        if s.alignment_data is not None:
+                            per_sample.append((copy.copy(s), False, None))
+                            continue
+                        f_out, r_out = scores[k]
+                        k += 1
+                        per_sample.append((copy.copy(s), True, (
+                            f_out[0], f_out[4], r_out[4],
+                            f_out[1], f_out[2], f_out[3])))
+                    analysis_futs[gi] = pools[gi % workers].submit(
+                        _analyze_event, gi, graph_descs[gi], reference_path,
+                        genotyping_parameters, parameters, per_sample,
+                        bam_specs, parameters.max_reads, defer_genotyping)
 
         def build_sw(r: int):
             """Scorer for round r. Graphs derive from the descriptions
@@ -309,26 +303,24 @@ def _run_pipeline(ctx, workers, rounds, graph_descs, reference_path,
 
         pending_score = None
         submit_extract(0)
-        t0 = time.perf_counter()
-        prebuilt_sw = {0: build_sw(0)} if rounds else {}
-        _clock("graph_build", t0)
+        with pipeline_stage(kernel_stats, "graph_build"):
+            prebuilt_sw = {0: build_sw(0)} if rounds else {}
         for r in range(len(rounds)):
             if r + 1 < len(rounds):
                 submit_extract(r + 1)
             sw = prebuilt_sw.pop(r, None)
-            t0 = time.perf_counter()
-            blobs_by_event = {gi: extract_futs.pop(gi).result()
-                              for gi in rounds[r]}
-            t0 = _clock("extract_wait", t0)
+            with pipeline_stage(kernel_stats, "extract_wait"):
+                blobs_by_event = {gi: extract_futs.pop(gi).result()
+                                  for gi in rounds[r]}
 
             # one scoring batch per (event x sample), in the pair order
             # build_sw laid the graphs out; (blob, lens) tuples go
             # straight to the scorer
-            batches = [blobs_by_event[gi][s.sample_name]
-                       for gi in rounds[r] for s in needs_align]
-            handle = sw.score_pairs_device(batches) if sw is not None \
-                else None
-            t0 = _clock("score_dispatch", t0)
+            with pipeline_stage(kernel_stats, "score_dispatch"):
+                batches = [blobs_by_event[gi][s.sample_name]
+                           for gi in rounds[r] for s in needs_align]
+                handle = sw.score_pairs_device(batches) if sw is not None \
+                    else None
 
             if pending_score is not None:
                 finalize_and_analyze(pending_score)
@@ -337,9 +329,8 @@ def _run_pipeline(ctx, workers, rounds, graph_descs, reference_path,
             # overlap the next round's scorer construction with its
             # extraction and with the device scoring round r
             if r + 1 < len(rounds):
-                t0 = time.perf_counter()
-                prebuilt_sw[r + 1] = build_sw(r + 1)
-                _clock("graph_build", t0)
+                with pipeline_stage(kernel_stats, "graph_build"):
+                    prebuilt_sw[r + 1] = build_sw(r + 1)
 
             done = sum(1 for f in analysis_futs if f is not None
                        and f.done())
@@ -348,46 +339,59 @@ def _run_pipeline(ctx, workers, rounds, graph_descs, reference_path,
         if pending_score is not None:
             finalize_and_analyze(pending_score)
 
-        t0 = time.perf_counter()
         results = []
         if defer_genotyping:
             from ..genotyping.device_engine import genotype_events_on_device
             from .grmpy import make_event_genotyper
 
-            genotypers = [make_event_genotyper(
-                graph_descs[gi], reference_path, genotyping_parameters,
-                analysis_futs[gi].result()) for gi in range(n_events)]
-            t0 = _clock("analysis_wait", t0)
-            genotype_events_on_device(genotypers, device, kernel_stats,
-                                      mesh=mesh)
-            for gi, gtr in enumerate(genotypers):
-                results.append(gtr.get_genotypes())
-                report_progress(gi + 1)
-            _clock("device_genotype", t0)
+            with pipeline_stage(kernel_stats, "analysis_wait"):
+                genotypers = [make_event_genotyper(
+                    graph_descs[gi], reference_path, genotyping_parameters,
+                    analysis_futs[gi].result()) for gi in range(n_events)]
+            with pipeline_stage(kernel_stats, "device_genotype"):
+                genotype_events_on_device(genotypers, device, kernel_stats,
+                                          mesh=mesh)
+                for gi, gtr in enumerate(genotypers):
+                    results.append(gtr.get_genotypes())
+                    report_progress(gi + 1)
         else:
-            for gi in range(n_events):
-                results.append(analysis_futs[gi].result())
-                report_progress(gi + 1)
-            _clock("analysis_wait", t0)
-        kernel_stats["stage_s"] = dict(stage_t)
-        logger.info("[pipeline] stage seconds: %s",
-                    {k: round(v, 2) for k, v in sorted(stage_t.items())})
+            with pipeline_stage(kernel_stats, "analysis_wait"):
+                for gi in range(n_events):
+                    results.append(analysis_futs[gi].result())
+                    report_progress(gi + 1)
         if kernel_stats.get("dispatches"):
-            wait = kernel_stats.get("device_wait_s", 0.0)
+            k1_s = kernel_stats.get("k1_s", 0.0)
             cells = kernel_stats.get("cells", 0)
             logger.info(
-                "[kernel] dispatches=%d cells=%.2fG device_wait=%.2fs "
-                "eff=%.1f Gcells/s (upper bound; see engine_report) "
-                "host: tables=%.2fs put=%.2fs call=%.2fs",
-                kernel_stats["dispatches"], cells / 1e9, wait,
-                cells / wait / 1e9 if wait > 0 else 0.0,
+                "[kernel] dispatches=%d cells=%.2fG k1=%.2fs "
+                "eff=%.1f Gcells per K1 second; host: tables=%.2fs "
+                "put=%.2fs call=%.2fs fetch=%.2fs slice=%.2fs",
+                kernel_stats["dispatches"], cells / 1e9, k1_s,
+                cells / k1_s / 1e9 if k1_s > 0 else 0.0,
                 kernel_stats.get("tables_s", 0.0),
                 kernel_stats.get("put_s", 0.0),
-                kernel_stats.get("call_s", 0.0))
+                kernel_stats.get("call_s", 0.0),
+                kernel_stats.get("device_wait_s", 0.0),
+                kernel_stats.get("slice_s", 0.0))
     finally:
         for ex in pools:
             ex.shutdown(wait=False, cancel_futures=True)
     return results
+
+
+def pipeline_stage(kernel_stats: dict, key: str) -> span:
+    """The span ``pipeline.<key>``, its seconds added into
+    ``kernel_stats["stage_s"][key]``."""
+    return span("pipeline." + key, kernel_stats.setdefault("stage_s", {}),
+                key)
+
+
+def log_stages(kernel_stats: Optional[dict]) -> None:
+    """The ``[pipeline] stage seconds`` line of a finished job."""
+    if kernel_stats and kernel_stats.get("stage_s"):
+        logger.info("[pipeline] stage seconds: %s",
+                    {k: round(v, 2)
+                     for k, v in sorted(kernel_stats["stage_s"].items())})
 
 
 def _root_desc(graph_desc: dict) -> dict:

@@ -18,6 +18,7 @@ import torch
 from paragraph_tpu.ops import batched_sw as jax_bsw
 from paragraph_tpu.ops import pallas_sw as jax_psw
 from paragraph_tpu_torch.graph.model import SequenceGraph
+from paragraph_tpu_torch.ops import multi_sw as msw
 from paragraph_tpu_torch.ops import pallas_sw as psw
 
 from test_gssw_vs_reference import _random_graph, _read_from_graph
@@ -181,11 +182,14 @@ def test_stats_carry_the_scorer_keys():
     hr = sw.score_device(reads[:2])
     sw.finalize(hf)
     sw.finalize(hr)
-    assert set(sw.stats) == {"dispatches", "cells", "lanes", "device_wait_s",
-                             "dispatch_host_s", "tables_s", "put_s",
-                             "call_s"}
+    assert set(sw.stats) == set(msw.scorer_stats()) == {
+        "dispatches", "cells", "device_wait_s", "tables_s", "put_s",
+        "call_s", "slice_s", "k1_s"}
     assert sw.stats["dispatches"] == 2
-    assert sw.stats["lanes"] == 2 * psw.TILE_LANES
+    # every host step timed; no card, so no kernel seconds
+    assert min(sw.stats[k] for k in ("tables_s", "put_s", "call_s",
+                                     "device_wait_s", "slice_s")) > 0
+    assert sw.stats["k1_s"] == 0.0
     assert sw.stats["cells"] == 2 * len(sw.arrays.ref_codes) \
         * psw.TILE_LANES * 32
 

@@ -159,7 +159,7 @@ def test_pipelined_matches_batch_path(wl8):
                                                            sort_keys=True)
     assert batch_stats["dispatches"] == 1
     assert pipe_stats["dispatches"] == -(len(graphs) // -4)
-    assert pipe_stats["cells"] > 0 and pipe_stats["lanes"] > 0
+    assert pipe_stats["cells"] > 0 and pipe_stats["slice_s"] > 0
     # the card is hidden from the workers only while they are spawned
     assert os.environ.get("CUDA_VISIBLE_DEVICES") == env_before
 
