@@ -735,13 +735,46 @@ def scorer_stats() -> dict:
     """A scorer's counters, zeroed: dispatches and issued DP cells; the
     host's seconds building tables (``tables_s``), queueing the copies
     (``put_s``), launching (``call_s``), blocked on the output's fetch
-    (``device_wait_s``: the kernel being fetched and whatever the stream
-    ran before it) and slicing the outputs (``slice_s``); and the
+    (``device_wait_s``) and slicing the outputs (``slice_s``); and the
     kernel's own device seconds, by CUDA events around each launch
-    (``k1_s``, 0.0 off a card)."""
+    (``k1_s``, 0.0 off a card). For the paired scorers the launch also
+    queues the output's copy to the host behind it (``queue_copy_out``),
+    so ``device_wait_s`` is the wait for the dispatch's own copy-out,
+    and ``fetch_ready`` counts the dispatches whose copy-out had ended
+    when the fetch reached them (every dispatch off a card; 0 for the
+    single-graph scorer, whose fetch is its own copy)."""
     return {"dispatches": 0, "cells": 0, "tables_s": 0.0, "put_s": 0.0,
             "call_s": 0.0, "device_wait_s": 0.0, "slice_s": 0.0,
-            "k1_s": 0.0}
+            "k1_s": 0.0, "fetch_ready": 0}
+
+
+def queue_copy_out(out):
+    """(host tensor, event) of a launch's output: on a card, the copy
+    into a pinned host tensor queued on the current stream of out's
+    device, which is the launch's, and a CUDA event recorded after it, so
+    the copy waits for its own launch and for nothing launched later; on
+    the host, out itself and None. Read the tensor after
+    ``wait_copy_out``. The caching host allocator hands the pinned block
+    out again only once the copy recorded on it has ended."""
+    if out.device.type != "cuda":
+        return out, None
+    import torch
+
+    host = torch.empty(out.shape, dtype=out.dtype, pin_memory=True)
+    with torch.cuda.device(out.device):
+        host.copy_(out, non_blocking=True)
+        done = torch.cuda.Event()
+        done.record()
+    return host, done
+
+
+def wait_copy_out(done) -> bool:
+    """Block until a copy-out's event has fired; whether it had already
+    (True for None: the output was on the host)."""
+    if done is None or done.query():
+        return True
+    done.synchronize()
+    return False
 
 
 def pair_graph_arrays(graphs: Sequence[SequenceGraph]):
@@ -827,14 +860,16 @@ class PairedGraphSW:
         events = timing_events(packed_cols.device)
         with span("scorer.launch", self.stats, "call_s", serial):
             out = paired_fill(tables, events=events)
+            host, done = queue_copy_out(out)
         self.stats["dispatches"] += 1
         self.stats["cells"] += int(
             t["tile_col_len"].astype(np.int64).sum()) * TILE_LANES \
             * t["m"]
-        return out, t["layout"], serial, events
+        return out, host, done, t["layout"], serial, events
 
     def score_pairs_device(self, reads_per_pair):
-        """Launch every chunk without fetching; finalize_pairs() later."""
+        """Launch every chunk, each with its copy-out queued behind it,
+        without waiting; finalize_pairs() later."""
         pending = []
         for chunk_i, idxs in enumerate(self.chunk_pairs):
             pending.append((chunk_i, idxs, *self._dispatch(
@@ -849,13 +884,16 @@ class PairedGraphSW:
             self.score_pairs_device(reads_per_pair))
 
     def finalize_pairs(self, handle):
+        """Per pair (f_out, r_out) of dispatched chunks: each fetch waits
+        only for its own launch's copy-out (``queue_copy_out``)."""
         pending, n_pairs = handle
         results = [None] * n_pairs
         vals_list = []
-        for _, _, out, _, serial, _ in pending:
+        for _, _, _, host, done, _, serial, _ in pending:
             with span("scorer.fetch", self.stats, "device_wait_s", serial):
-                vals_list.append(out.cpu().numpy())
-        for (chunk_i, idxs, out, layout, serial, events), vals in zip(
+                self.stats["fetch_ready"] += wait_copy_out(done)
+                vals_list.append(host.numpy())
+        for (chunk_i, idxs, out, _, _, layout, serial, events), vals in zip(
                 pending, vals_list):
             self.stats["k1_s"] += kernel_seconds(out.device, events)
             with span("scorer.slice", self.stats, "slice_s", serial):

@@ -691,3 +691,85 @@ def test_bench_device_on_the_card(cuda_device):
                                      hidden.returncode, "cuda")
     assert hidden.returncode != 0 and result is None
     assert "torch.cuda.is_available() is false" in why
+
+
+def _scorers(kind, cases, device):
+    from paragraph_tpu_torch.parallel.distributed import ShardedPairedSW
+
+    if kind == "paired":
+        return [msw.PairedGraphSW(g, device=device) for g, _ in cases]
+    return [ShardedPairedSW(g, [torch.device("cuda", 0)] * 4)
+            for g, _ in cases]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["paired", "sharded"])
+def test_rounds_finalised_behind_the_next_dispatch(kind, cuda_device):
+    """Three rounds, each finalised after the next one is dispatched (two
+    handles in flight, as the benchmark's realign loop and the pipeline
+    run them): the outputs equal score_pairs one round at a time on the card
+    and the plain fill's."""
+    cases = [_case(seed=s, n_pairs=5, n_reads=(1, 20)) for s in (31, 32, 33)]
+    scorers = _scorers(kind, cases, cuda_device)
+    got = []
+    pending = scorers[0].score_pairs_device(cases[0][1])
+    for k in (1, 2):
+        handle = scorers[k].score_pairs_device(cases[k][1])
+        got.append(scorers[k - 1].finalize_pairs(pending))
+        pending = handle
+    got.append(scorers[2].finalize_pairs(pending))
+    for (graphs, rpp), sw, g_round in zip(cases, scorers, got):
+        one = sw.score_pairs(rpp)
+        plain = msw.PairedGraphSW(graphs, device="cpu").score_pairs(rpp)
+        for g, o, p in zip(g_round, one, plain):
+            for side in range(2):
+                for x, y, z in zip(g[side], o[side], p[side]):
+                    assert x.dtype == y.dtype == z.dtype
+                    np.testing.assert_array_equal(x, y)
+                    np.testing.assert_array_equal(x, z)
+
+
+def _large_dispatch(n_reads=3000, flank=4000, seed=41):
+    """One pair whose K1 takes tens of ms: a deletion graph with 4 kb
+    flanks and 150-base reads drawn from its reference path."""
+    rng = random.Random(seed)
+    left, alt, right = _seq(rng, flank), _seq(rng, 50), _seq(rng, flank)
+    g = SequenceGraph(["left", "alt", "right"], [left, alt, right])
+    g.add_edge(0, 1)
+    g.add_edge(1, 2)
+    g.add_edge(0, 2)
+    ref = left + alt + right
+    starts = [rng.randrange(len(ref) - 150) for _ in range(n_reads)]
+    return [g], [[ref[s:s + 150] for s in starts]]
+
+
+@pytest.mark.cuda
+def test_fetch_waits_for_its_own_copy_out_only(cuda_device):
+    """A small dispatch k, then a large one k+1: finalize_pairs(k) returns
+    while the stream still runs K1(k+1), since k's copy-out was queued
+    behind K1(k) and not behind K1(k+1). A fetch after a synchronize
+    counts in fetch_ready."""
+    small_g, small_rpp = _case(seed=34)
+    small = msw.PairedGraphSW(small_g, device=cuda_device)
+    large_g, large_rpp = _large_dispatch()
+    large = msw.PairedGraphSW(large_g, device=cuda_device)
+    large.score_pairs(large_rpp)  # the kernel library and the pinned pool
+    torch.cuda.synchronize()
+    stream = torch.cuda.current_stream()
+    h_small = small.score_pairs_device(small_rpp)
+    h_large = large.score_pairs_device(large_rpp)
+    got = small.finalize_pairs(h_small)
+    assert not stream.query()
+    large.finalize_pairs(h_large)
+    assert stream.query()
+    want = msw.PairedGraphSW(small_g, device="cpu").score_pairs(small_rpp)
+    for g, w in zip(got, want):
+        for side in range(2):
+            for x, y in zip(g[side], w[side]):
+                np.testing.assert_array_equal(x, y)
+
+    before = small.stats["fetch_ready"]
+    handle = small.score_pairs_device(small_rpp)
+    torch.cuda.synchronize()
+    small.finalize_pairs(handle)
+    assert small.stats["fetch_ready"] == before + len(small.chunk_pairs)

@@ -9,6 +9,9 @@
 - the scorers' counters: ``PairedGraphSW``, ``ShardedPairedSW`` and
   ``SingleGraphSW`` keep the one key set, and every dispatch shows as
   its five spans under one serial;
+- off a card every paired fetch finds its output ready (``fetch_ready``),
+  and rounds finalised one behind the next dispatch, as the benchmark's
+  realign loop and the pipeline run them, give ``score_pairs``' outputs;
 - ``timing_events`` and ``kernel_seconds`` off a card;
 - ``pipeline_stage`` adds into ``stage_s`` under a ``pipeline.<key>``
   span.
@@ -30,7 +33,7 @@ CPU = torch.device("cpu")
 SCORER_SPANS = ["scorer.tables", "scorer.put", "scorer.launch",
                 "scorer.fetch", "scorer.slice"]
 SCORER_KEYS = {"dispatches", "cells", "tables_s", "put_s", "call_s",
-               "device_wait_s", "slice_s", "k1_s"}
+               "device_wait_s", "slice_s", "k1_s", "fetch_ready"}
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -154,6 +157,51 @@ def test_each_dispatch_shows_as_five_spans_under_one_serial(scorer):
     order = [name.split("#")[0] for _, _, name, _ in events]
     assert max(i for i, n in enumerate(order) if n == "scorer.launch") \
         < min(i for i, n in enumerate(order) if n == "scorer.fetch")
+
+
+def _scorer(kind, graphs):
+    if kind == "paired":
+        return msw.PairedGraphSW(graphs, device="cpu")
+    return ShardedPairedSW(graphs, mesh=[CPU] * 2, col_budget=1)
+
+
+def test_fetch_ready_counts_every_paired_fetch_off_a_card():
+    graphs = [_graph(), _graph("TTGACCGTAA", "C")]
+    rpp = [_reads(), _reads()[:2]]
+    single = psw.SingleGraphSW(graphs[0], device="cpu")
+    single.score(_reads())
+    single.finalize(single.score_device(_reads()[:1]))
+    assert single.stats["dispatches"] > 0 and single.stats["fetch_ready"] == 0
+    for kind in ("paired", "sharded"):
+        sw = _scorer(kind, graphs)
+        sw.score_pairs(rpp)
+        sw.finalize_pairs(sw.score_pairs_device(rpp[::-1]))
+        assert sw.stats["fetch_ready"] == sw.stats["dispatches"] \
+            == (2 if kind == "paired" else 4)
+
+
+@pytest.mark.parametrize("kind", ["paired", "sharded"])
+def test_rounds_finalised_behind_the_next_dispatch_match(kind):
+    graphs = [_graph(), _graph("TTGACCGTAA", "C"), _graph("GATTACAGAT", "T")]
+    rounds = [[_reads(), _reads()[:2], _reads()[1:]],
+              [_reads()[:1], [], _reads()],
+              [_reads()[::-1], _reads()[2:], _reads()[:2]]]
+    sw = _scorer(kind, graphs)
+    want = [_scorer(kind, graphs).score_pairs(rpp) for rpp in rounds]
+    got = []
+    pending = sw.score_pairs_device(rounds[0])
+    for rpp in rounds[1:]:
+        handle = sw.score_pairs_device(rpp)
+        got.append(sw.finalize_pairs(pending))
+        pending = handle
+    got.append(sw.finalize_pairs(pending))
+    for g_round, w_round in zip(got, want):
+        for g, w in zip(g_round, w_round):
+            for side in range(2):
+                for x, y in zip(g[side], w[side]):
+                    assert x.dtype == y.dtype
+                    assert (x == y).all()
+    assert sw.stats["fetch_ready"] == sw.stats["dispatches"]
 
 
 def test_timing_events_are_none_off_a_card():
