@@ -27,7 +27,7 @@ from typing import Dict, List
 
 import numpy as np
 
-from . import inputs, judge, reference, roofline, scoring
+from . import inputs, judge, reference, roofline, scoring, stages
 
 
 def log(*parts) -> None:
@@ -234,22 +234,30 @@ class MultigrmpyDriver:
             "per_kind_recall": scoring.per_kind_recall(self.events,
                                                        misses)}
 
+    def _job_rows(self) -> List[dict]:
+        return [{"wall_s": j["wall_s"],
+                 "stage_s": j["stats"].get("stage_s", {}),
+                 "stats": {k: v for k, v in j["stats"].items()
+                           if k != "stage_s"},
+                 "ok": j["result"] is not None} for j in self.jobs]
+
     def run_record(self, window_s: float, trace_summary) -> dict:
         """What the metric readers read."""
         return {"driver": "multigrmpy", "window_s": window_s,
                 "events": len(self.events), "samples": len(self.samples),
-                "jobs": [{"wall_s": j["wall_s"],
-                          "stage_s": j["stats"].get("stage_s", {}),
-                          "stats": {k: v for k, v in j["stats"].items()
-                                    if k != "stage_s"},
-                          "ok": j["result"] is not None}
-                         for j in self.jobs],
-                "trace": trace_summary}
+                "jobs": self._job_rows(), "trace": trace_summary}
 
     def details(self) -> List[dict]:
+        rows = self._job_rows()
+        outside = [stages.seconds(r)[stages.OUTSIDE] for r in rows
+                   if r["ok"]]
+        # the stages are disjoint only if no job's outside time is below 0
         return [{"job": j["name"], "wall_s": j["wall_s"],
                  "stage_s": j["stats"].get("stage_s", {}),
-                 "accuracy": j.get("accuracy")} for j in self.jobs]
+                 "accuracy": j.get("accuracy")} for j in self.jobs] + [
+            {"completed_jobs": len(outside),
+             "outside_min_s": min(outside, default=None),
+             "ms_per_event_by_stage": stages.split(rows, len(self.events))}]
 
     def close(self) -> None:
         shutil.rmtree(self.tmp, ignore_errors=True)

@@ -1,7 +1,9 @@
 """The check catches a broken timed path: the harness's run on the CPU
 (the look for a card skipped), with the program broken underneath, reads
 ``correct`` false, once for each fault the cells can have (an answer
-altered where it is produced; half of a batch left out). A step that
+altered where it is produced; half of a batch left out), on the realign
+path, the batch path and the pipelined path of multigrmpy; a job that
+raises counts as failed. A step that
 returns its state unchanged and an exchange between chips do not exist
 in these cells: they train nothing and run on one card."""
 from __future__ import annotations
@@ -91,3 +93,74 @@ def test_half_the_reads_left_out(monkeypatch):
 
     monkeypatch.setattr(grmpy, "extract_reads", half)
     assert not _correct("tiny.catalog")
+
+
+def test_pipelined_answer_altered(monkeypatch):
+    from paragraph_tpu_torch.pipeline import parallel_grmpy
+
+    real = parallel_grmpy.run_grmpy_pipelined
+
+    def altered(*args, **kwargs):
+        results = real(*args, **kwargs)
+        for rec in results:
+            for sample in rec["samples"].values():
+                gt = sample.get("gt", {})
+                if "GQ" in gt:
+                    gt["GQ"] = gt["GQ"] + 1
+        return results
+
+    monkeypatch.setattr(parallel_grmpy, "run_grmpy_pipelined", altered)
+    assert not _correct("tiny.pipelined")
+
+
+def test_pipelined_half_batch_left_out(monkeypatch):
+    """Each pair's reads cut to the first half: as the pipeline hands
+    them to the scorer (one blob of bases and their lengths), and as a
+    list on the batch path of the warm-up job."""
+    from paragraph_tpu_torch.ops import multi_sw
+
+    real = multi_sw.PairedGraphSW.score_pairs_device
+
+    def half(self, reads_per_pair):
+        cut = []
+        for reads in reads_per_pair:
+            if isinstance(reads, tuple):
+                blob, lens = reads
+                k = len(lens) // 2
+                reads = (blob[:int(lens[:k].sum())], lens[:k])
+            else:
+                reads = reads[:len(reads) // 2]
+            cut.append(reads)
+        return real(self, cut)
+
+    monkeypatch.setattr(multi_sw.PairedGraphSW, "score_pairs_device", half)
+    assert not _correct("tiny.pipelined")
+
+
+def test_a_job_that_raises_is_failed(monkeypatch):
+    """The first job of the window raises: its events count as failed,
+    the run is not correct, and sv_per_s counts only the jobs that
+    completed."""
+    from paragraph_tpu_torch.pipeline import multigrmpy
+
+    real = multigrmpy.run
+    calls = []
+
+    def first_window_job_raises(options, *args, **kwargs):
+        calls.append(options)
+        if len(calls) == 2:  # the warm-up job is the first call
+            raise RuntimeError("a job that raises")
+        return real(options, *args, **kwargs)
+
+    monkeypatch.setattr(multigrmpy, "run", first_window_job_raises)
+    cell = fixture_cell("tiny.catalog")
+    out = run_cell(cell, SEED, 0.1, False, device="cpu")
+    result, record = out["result"], out["record"]
+    jobs = len(record["jobs"])
+    units = record["events"] * record["samples"]
+    assert not record["jobs"][0]["ok"]
+    assert result["failed"] == units and result["attempted"] == units * jobs
+    assert result["correct"] is False
+    sv = result["metrics"]["sv_per_s"]["value"]
+    assert sv == pytest.approx(units * (jobs - 1) / record["window_s"])
+    assert sv < units * jobs / record["window_s"]

@@ -1,4 +1,4 @@
-"""The reading of the program's spans (``program_spans.py``) and the three
+"""The reading of the program's spans (``program_spans.py``) and the
 metrics on it, on synthetic profiler events: two rounds worked by hand.
 
 Times in ms (events in ns). The window is [0, 100]. Round 1 (dispatch
@@ -108,7 +108,6 @@ def test_kernels_without_a_launch_call_join_no_dispatch():
                                         + program_events())
     assert s["fetch"] == {"spans": 2, "total_s": pytest.approx(0.039),
                           "kernels_joined": 0, "kernels": 2}
-    assert _read_with(s, "fetch_behind_k1_share.realign") is None
 
 
 def test_nested_spans_give_self_time_to_the_innermost():
@@ -138,21 +137,12 @@ def _read(metric, run):
     return load_reader(metric)(run)
 
 
-def _read_with(summary, metric):
-    """The metric of a run whose program summary is `summary`."""
-    run = {"window_s": 0.1, "trace": {"busy_s": 0.064}}
-    program_spans._cache.update(run=run, summary=summary)
-    return _read(metric, run)
-
-
 def test_the_readers_on_the_two_rounds(capsys):
     tr = Trace(card_events() + program_events())  # noqa: F841 (read by
     # program_spans.of_run on this frame)
     run = {"window_s": 0.1, "trace": {"busy_s": 0.064},
            "scorer": {"dispatches": 2, "k1_s": 0.060}}
     assert _read("tables_idle_share.realign", run) == pytest.approx(20.0)
-    assert _read("fetch_behind_k1_share.realign", run) == pytest.approx(
-        100 * 30 / 39)
     assert _read("k1_ms_per_dispatch.realign", run) == pytest.approx(30.0)
     assert '"program_spans"' in capsys.readouterr().err
 
@@ -161,10 +151,9 @@ def test_the_readers_return_none_with_nothing_to_read():
     parent = {"window_s": 0.1, "trace": {"busy_s": 0.064},
               "scorer": {"dispatches": 2, "tables_s": 0.04, "put_s": 0.01}}
     untraced = {"window_s": 0.1, "trace": None, "scorer": {}}
-    names = ("k1_ms_per_dispatch.realign", "tables_idle_share.realign",
-             "fetch_behind_k1_share.realign")
+    names = ("k1_ms_per_dispatch.realign", "tables_idle_share.realign")
     for run in (parent, untraced):
         # no profiler on the frames
-        assert [_read(m, dict(run)) for m in names] == [None] * 3
+        assert [_read(m, dict(run)) for m in names] == [None] * 2
     tr = Trace(card_events())  # noqa: F841 - a trace with no program span
-    assert [_read(m, dict(parent)) for m in names] == [None] * 3
+    assert [_read(m, dict(parent)) for m in names] == [None] * 2
