@@ -4,7 +4,9 @@ out as not correct.
 
 - genotyping: the reference's records with the likelihoods of the batch
   model in the configuration's ``control.genotyping`` (float32, where
-  the configuration genotypes in float64);
+  the configuration genotypes in float64; float16, where it genotypes on
+  the float32 device engine), judged against the float64 host engine as
+  the program is;
 - alignment scores: the reference's fill with every H value saturated as
   int8 holds it (127). int16 is no control here: it holds every score of
   reads up to 32,767 bases exactly (match 1), so it is not lower in
@@ -73,7 +75,8 @@ def control_numbers(cell, seed: int, processes: int) -> dict:
     low = reference.event_records(work, cfg, checked, samples,
                                   engine="batch", round_to=precision,
                                   processes=processes, device=device)
-    return judge.fold(judge.compare_samples(low[i], ref[i])
+    float32 = judge.float32_program(cfg)
+    return judge.fold(judge.compare_samples(low[i], ref[i], float32)
                       for i in checked)
 
 
@@ -89,12 +92,13 @@ def main(argv=None) -> int:
     for seed in (int(s) for s in args.seeds.split(",")):
         t0 = time.perf_counter()
         numbers = control_numbers(cell, seed, drivers.workers())
+        rounded = numbers.pop("gq_rounded", None)
         ok, rows = judge.verdict(numbers, cell.config["limits"])
         caught_all &= not ok
         print(json.dumps({"workload": args.workload, "seed": seed,
                           "control": cell.config["control"],
                           "numbers": {n: [v, lim] for n, v, lim in rows},
-                          "caught": not ok,
+                          "gq_rounded": rounded, "caught": not ok,
                           "seconds": time.perf_counter() - t0}), flush=True)
     return 0 if caught_all else 1
 

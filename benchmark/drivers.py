@@ -95,6 +95,8 @@ class MultigrmpyDriver:
         self.device_arg = device
         self.jobs: List[dict] = []
         self.tmp = tempfile.mkdtemp(prefix="bench_jobs_")
+        self.reference_s = None
+        self.gq_rounded = None
 
     # ---- set-up
     def setup(self) -> None:
@@ -185,11 +187,14 @@ class MultigrmpyDriver:
             self.work, self.cfg, checked, self.samples,
             processes=min(workers(), len(checked) * len(self.samples)),
             device=self.device_arg)
+        self.reference_s = time.perf_counter() - t0
         log(f"[bench] reference over {len(checked)} events x "
-            f"{len(self.samples)} samples: {time.perf_counter() - t0:.2f}s")
+            f"{len(self.samples)} samples: {self.reference_s:.2f}s")
+        float32 = judge.float32_program(self.cfg)
         numbers = judge.fold(
-            judge.compare_samples(recs.get(i, {}), ref[i])
+            judge.compare_samples(recs.get(i, {}), ref[i], float32)
             for recs in kept for i in checked)
+        self.gq_rounded = numbers.pop("gq_rounded", None)
         if not kept:
             numbers = {k: float("inf") for k in self.cfg["limits"]
                        if k != "k1_outputs_differ"}
@@ -257,7 +262,11 @@ class MultigrmpyDriver:
                  "accuracy": j.get("accuracy")} for j in self.jobs] + [
             {"completed_jobs": len(outside),
              "outside_min_s": min(outside, default=None),
-             "ms_per_event_by_stage": stages.split(rows, len(self.events))}]
+             "ms_per_event_by_stage": stages.split(rows, len(self.events)),
+             "gt_device_jobs": [r["stats"].get("gt_device_jobs")
+                                for r in rows if r["ok"]],
+             "reference_s": self.reference_s,
+             "gq_rounded": self.gq_rounded}]
 
     def close(self) -> None:
         shutil.rmtree(self.tmp, ignore_errors=True)

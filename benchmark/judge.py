@@ -8,6 +8,13 @@ window:
   read counts, GT, GQ and filters, and the sample's GT, GQ and filters;
 - ``gl_gap``: the widest gap between a GL of the program and the
   reference's.
+All against refpipe's float64 host engine. A program that genotypes in
+float32 (``float32_program``) may give another GQ only where float32
+cannot resolve GQ's error probability, 1 - exp(best) / sum(exp(GL)): where
+the reference's is under GQ_ULPS float32 ulps of the best GL, float32
+rounds it to 0 or a few ulps, and GQ to anything from ``gq_floor`` up to
+the cap of 100. Such a GQ counts as ``gq_rounded`` on the detail line,
+not in ``calls_differ``; nothing else is exempted.
 realign cell: ``k1_outputs_differ``, the (read orientation, output)
 values among score, end node, end offset, end row and multi flag that
 differ, over every pass of the window over the checked events.
@@ -15,7 +22,7 @@ differ, over every pass of the window over the checked events.
 from __future__ import annotations
 
 import math
-from typing import Dict, Iterable, List, Tuple
+from typing import Dict, Iterable, List, Optional, Tuple
 
 import numpy as np
 
@@ -28,13 +35,62 @@ def _gl_gap(a: dict, b: dict) -> float:
     ga, gb = a.get("GL", {}), b.get("GL", {})
     if set(ga) != set(gb):
         return math.inf
-    return max((abs(ga[k] - gb[k]) for k in ga), default=0.0)
+    gaps = [abs(ga[k] - gb[k]) for k in ga]
+    # a GL that is NaN on one side is as far off as one can be
+    return max((math.inf if math.isnan(g) else g for g in gaps),
+               default=0.0)
 
 
-def compare_samples(prog: dict, ref: dict) -> Dict[str, float]:
+#: float32 ulps of the best GL under which GQ's error probability is not
+#: resolved; on an H100 every GQ of the device engine that differed from
+#: the float64 engine's had it under 4.5 ulps
+GQ_ULPS = 8
+
+
+def float32_program(cfg: dict) -> bool:
+    """Whether the configuration's program genotypes in float32: its
+    ``gt_engine`` names the device engine. "auto" is judged as float64,
+    so a configuration whose "auto" takes the engine has to name it."""
+    return cfg["options"].get("gt_engine") == "device"
+
+
+def gq_floor(gt: dict) -> Optional[int]:
+    """The lowest GQ that float32 may give for the reference's genotype
+    record `gt`, where its GQ's error probability is under GQ_ULPS float32
+    ulps of its best GL: that of the error probability plus those ulps;
+    None where float32 resolves it."""
+    gl = list(gt.get("GL", {}).values())
+    if len(gl) < 2 or not math.isfinite(max(gl)):
+        return None
+    best = max(gl)
+    pr_err = -math.expm1(-math.log(sum(math.exp(g - best) for g in gl)))
+    ulps = GQ_ULPS * float(np.spacing(np.float32(abs(best))))
+    if pr_err > ulps:
+        return None
+    return int(-10 * math.log10(pr_err + ulps))
+
+
+def _items_differ(rg: dict, pg: dict, float32: bool) -> Tuple[int, int]:
+    """(differing items of GT, GQ and filters, GQs that float32 rounds)."""
+    calls = rounded = 0
+    for name, x, y in zip(("GT", "GQ", "filters"), _gt_items(rg),
+                          _gt_items(pg)):
+        if x == y:
+            continue
+        low = gq_floor(rg) if float32 and name == "GQ" else None
+        if low is not None and isinstance(y, int) and low <= y <= 100:
+            rounded += 1
+        else:
+            calls += 1
+    return calls, rounded
+
+
+def compare_samples(prog: dict, ref: dict, float32: bool = False
+                    ) -> Dict[str, float]:
     """Numbers of one event: `prog` and `ref` are its records' "samples"
-    dicts ({sample: record})."""
-    calls = 0
+    dicts ({sample: record}). With `float32` (a program that genotypes in
+    float32), a GQ that float32 rounds counts as ``gq_rounded``."""
+    calls = rounded = 0
     gap = 0.0
     for name, r in ref.items():
         p = prog.get(name)
@@ -43,6 +99,7 @@ def compare_samples(prog: dict, ref: dict) -> Dict[str, float]:
             gap = math.inf
             continue
         rb, pb = r.get("breakpoints", {}), p.get("breakpoints", {})
+        gts = [(r.get("gt", {}), p.get("gt", {}))]
         for bp in set(rb) | set(pb):
             if bp not in rb or bp not in pb:
                 calls += 1
@@ -50,14 +107,15 @@ def compare_samples(prog: dict, ref: dict) -> Dict[str, float]:
                 continue
             calls += (rb[bp]["counts"]["alleles"]
                       != pb[bp]["counts"]["alleles"])
-            rg, pg = rb[bp].get("gt", {}), pb[bp].get("gt", {})
-            calls += sum(x != y for x, y in zip(_gt_items(rg),
-                                                 _gt_items(pg)))
+            gts.append((rb[bp].get("gt", {}), pb[bp].get("gt", {})))
+        for rg, pg in gts:
+            c, k = _items_differ(rg, pg, float32)
+            calls, rounded = calls + c, rounded + k
             gap = max(gap, _gl_gap(rg, pg))
-        rg, pg = r.get("gt", {}), p.get("gt", {})
-        calls += sum(x != y for x, y in zip(_gt_items(rg), _gt_items(pg)))
-        gap = max(gap, _gl_gap(rg, pg))
-    return {"calls_differ": calls, "gl_gap": gap}
+    out = {"calls_differ": calls, "gl_gap": gap}
+    if float32:
+        out["gq_rounded"] = rounded
+    return out
 
 
 def fold(numbers: Iterable[Dict[str, float]]) -> Dict[str, float]:

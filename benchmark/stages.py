@@ -3,7 +3,7 @@
 ``pipeline.<stage>`` spans of the port), each counted once, and under
 ``OUTSIDE`` the rest of each job's wall time, outside every stage
 (spawning the workers is there). Over the window's completed jobs, in
-milliseconds per catalogue event.
+milliseconds per catalogue event, or per event x sample (``per_sv``).
 
 The layers: the entry and orchestrator (``pipeline/multigrmpy.py``)
 own ``load``, ``write_json``, ``vcf_update`` and ``OUTSIDE``; the graphs
@@ -55,3 +55,16 @@ def ms_per_event(run, stages: Iterable[str]) -> Optional[float]:
     by_stage = split(completed(run), run.get("events"))
     found = [by_stage[k] for k in stages if k in by_stage]
     return sum(found) if found else None
+
+
+def per_sv(names: Iterable[str]):
+    """A reader of `names`' milliseconds per event x sample (a job
+    genotypes each event in each of the run's samples); None where
+    `ms_per_event` is."""
+    names = tuple(names)
+
+    def read(run):
+        ms = ms_per_event(run, names)
+        return None if ms is None else ms / run["samples"]
+
+    return read

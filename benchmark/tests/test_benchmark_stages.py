@@ -56,6 +56,30 @@ def test_readers_on_a_worked_record(metric, value):
     assert load_reader(metric)(multigrmpy_run()) == pytest.approx(value)
 
 
+@pytest.mark.parametrize("metric,value", [
+    # 1.5 s of device_genotype over 20 events and 2 samples
+    ("device_genotype_ms_per_sv.catalog150x8", 37.5),
+    # score_dispatch + device_wait+submit: 2.5 s
+    ("scorer_ms_per_sv.catalog150x8", 62.5),
+    # extract_wait + analysis_wait: 7 s
+    ("extract_wait_ms_per_sv.catalog150x8", 175.0),
+    ("device_idle_share.catalog150x8", 75.0),
+])
+def test_population_readers_per_event_and_sample(metric, value):
+    """The worked record with 2 samples a job and the device engine's
+    stage (0.5 s in job 1, 1 s in job 2): milliseconds per event x
+    sample."""
+    run = multigrmpy_run()
+    run["samples"] = 2
+    run["jobs"][0]["stage_s"]["device_genotype"] = 0.5
+    run["jobs"][1]["stage_s"]["device_genotype"] = 1.0
+    assert load_reader(metric)(run) == pytest.approx(value)
+    assert load_reader(metric)({"driver": "realign", "window_s": 20.0,
+                                "trace": {"busy_s": 5.0}}) is None
+    if metric.startswith("device_genotype"):
+        assert load_reader(metric)(multigrmpy_run()) is None  # host engine
+
+
 def test_the_split_adds_up_to_the_wall_time():
     run = multigrmpy_run()
     split = stages.split(run["jobs"], run["events"])
