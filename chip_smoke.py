@@ -14,7 +14,15 @@ Phases, in order; any failure exits non-zero before the result line:
    any instantiation fails the run), K1's, K2's and K3's resident warps
    per SM at M=160, M=800 and M=2048 (the band kernels), and each K4
    variant's at M=160 (cudaOccupancyMaxActiveBlocksPerMultiprocessor).
-3. K1 kernel vs plain: seeded random cases (N bases, read lengths 6-150,
+3. read tables and K1 kernel vs plain: first the read-table kernel
+   (ops/csrc/pair_tables.cu) on a realign-like dispatch (32 events x 106
+   reads of 150 bases, every other read in lower case: T=128, B=16,384,
+   M=160): its tensors equal to build_pair_tables + dispatch_tables and
+   to pair_tables_reference on the card (tolerance 0), K1 on them equal
+   to the plain fill, the kernel timed alone with its bytes' bound. Every
+   K1 case below runs on tables staged and built by the table kernel as
+   the scorer builds them, each held so to the host tables first. Then
+   seeded random cases (N bases, read lengths 6-150,
    empty pairs, pad tiles, reads longer than the graph, int16 and int32
    col_idx), a long-read case (reads of 480-800 bases, M >= 512), a
    very-long-read case (reads of 833-2048 bases, M = 2048: the row-band
@@ -30,7 +38,9 @@ Phases, in order; any failure exits non-zero before the result line:
    1; generated into smoke_workload/ by that script's command line in a
    subprocess, since it uses the JAX package's BGZF reader, and reused;
    this process reads its truth.json). Requires paired kernel
-   launches on that run, zero unexpected misses against the planted
+   launches on that run, one table kernel launch per dispatch (and
+   `tables_on_card` equal to `dispatches`), zero unexpected misses
+   against the planted
    truth (tools/bench_e2e.py::check_truth) and the native traceback library.
 5. kernel path == plain path end to end: the first 16 events through
    the port on cuda and on cpu give identical genotypes JSON and VCF
@@ -123,19 +133,22 @@ Phases, in order; any failure exits non-zero before the result line:
    to price the gap between the kernel and the whole dispatch.
 
 Each kernel's launches are counted on its own path, with the counts set
-to 0 just before it and read just after: the paired kernel on phase 4
-(and on phase 11's run, reported there), the single-graph kernel on
+to 0 just before it and read just after: the paired kernel and the
+table kernel on phase 4 (and the paired kernel on phase 11's run,
+reported there), the single-graph kernel on
 phase 7 (and on phase 12's cuda run, reported beside it), the multi
 kernel on phase 9's cuda runs, the ablation kernel on phase 10's timing
 of each TPU body's variants; phase 13 counts the paired kernel's
-launches of each of its sharded runs; phase 14 runs in a subprocess of
+launches of each of its sharded runs (and, in (a), the table kernel's,
+one a K1 launch); phase 14 runs in a subprocess of
 its own and counts nothing here. The process refuses to import jax and
 the JAX package. The last three lines are the card's name and power limit,
-then {"kernels": [...]} (paired_sw, graph_sw, multi_sw and one
-kbench_sw entry per TPU kernel body of tools/kbench2.py, each with its
-bound: the larger of the int32 operations (DPX fused) the needed cells
-take on the card's INT32 lanes at the maximum SM clock and the bytes of
-its tensors at the memory rate), then
+then {"kernels": [...]} (paired_sw, graph_sw, multi_sw, pair_tables
+and one kbench_sw entry per TPU kernel body of tools/kbench2.py, each
+with its bound: for the fills the larger of the int32 operations (DPX
+fused) the needed cells take on the card's INT32 lanes at the maximum
+SM clock and the bytes of its tensors at the memory rate; for
+pair_tables the bytes it reads and writes at the memory rate), then
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 """
 import gzip
@@ -182,6 +195,20 @@ GRAPH_SOURCE = "paragraph_tpu_torch/ops/csrc/graph_sw.cu"
 GRAPH_REPLACES = "paragraph_tpu/ops/pallas_sw.py:91"
 MULTI_REPLACES = "paragraph_tpu/ops/multi_sw.py:280"
 KBENCH_SOURCE = "paragraph_tpu_torch/ops/csrc/kbench_sw.cu"
+#: the read-table kernel, and the JAX package's host builder whose tables
+#: it writes (no TPU kernel: the JAX package builds them on the host)
+TABLES_SOURCE = "paragraph_tpu_torch/ops/csrc/pair_tables.cu"
+TABLES_REPLACES = "paragraph_tpu/ops/multi_sw.py:442"
+#: phase 3's realign-like dispatch for the table kernel: events, reads of
+#: each, read length (the wgs30x.realign cell's 32-event rounds: about
+#: 3,400 reads of 150 bases a dispatch, M=160)
+TABLE_EVENTS = 32
+TABLE_READS = 106
+TABLE_READ_LEN = 150
+#: the read tables of a paired dispatch, as FillTables holds them
+TABLE_FIELDS = ("tile_col_start", "tile_col_len", "tile_event",
+                "base_codes_t", "base_lens", "base_vlens", "col_idx", "flip",
+                "comp")
 #: the long-read cases of phases 3 and 6: reads of 480-800 bases, so M up
 #: to LONG_M read rows (25 and 26 rows per thread in the warp-per-lane
 #: kernels)
@@ -477,19 +504,62 @@ def very_long_read_case(seed: int, short_graphs: bool):
                     for g in graphs]
 
 
-def _case_tables(graphs, rpp, device):
-    """FillTables of every chunk of a PairedGraphSW over the case."""
+def _assert_tables_equal(got, want, label):
+    """Raises unless two FillTables hold the same read tables: every
+    tensor of TABLE_FIELDS equal in dtype, shape and value (tolerance 0),
+    and l_ev."""
+    import torch
+
+    for field in TABLE_FIELDS:
+        x, y = getattr(got, field), getattr(want, field)
+        if x.dtype != y.dtype or x.shape != y.shape \
+                or not torch.equal(x, y):
+            raise AssertionError(
+                f"{label}: {field} differs ({x.dtype} {tuple(x.shape)} "
+                f"against {y.dtype} {tuple(y.shape)})")
+    if got.l_ev != want.l_ev:
+        raise AssertionError(f"{label}: l_ev {got.l_ev} != {want.l_ev}")
+
+
+def _staged_dispatch(a, pairs, device, label):
+    """(FillTables of one dispatch as the scorer builds them on the card:
+    staged by the host, built by the table kernel; the host's
+    build_pair_tables dict). The kernel's tensors are held, tensor by
+    tensor at tolerance 0, to build_pair_tables + dispatch_tables and to
+    pair_tables_reference on the same card; layout, m and l_ev to the
+    host's."""
+    import torch
+
     from paragraph_tpu_torch.ops.multi_sw import (
-        TILE_LANES, PairedGraphSW, build_pair_tables, dispatch_tables,
-        graph_tensors)
+        TILE_LANES, build_pair_tables, dispatch_tables, graph_tensors,
+        pair_tables, pair_tables_reference, stage_pair_tables,
+        staging_tensor)
+
+    packed_cols, pred_tables = graph_tensors(a, device)
+    s = stage_pair_tables(a, pairs, TILE_LANES)
+    got = pair_tables(s, packed_cols, pred_tables)
+    t = build_pair_tables(a, pairs, TILE_LANES)
+    host = dispatch_tables(t, packed_cols, pred_tables, packed_cols.device)
+    plain = pair_tables_reference(staging_tensor(s, pin=False), s,
+                                  packed_cols, pred_tables)
+    torch.cuda.synchronize()
+    _assert_tables_equal(got, host, f"{label}: table kernel vs host")
+    _assert_tables_equal(plain, host, f"{label}: plain tables vs host")
+    if (s.layout, s.m, s.l_ev) != (t["layout"], t["m"], t["l_ev"]):
+        raise AssertionError(f"{label}: staged layout, m or l_ev differ")
+    return got, t
+
+
+def _case_tables(graphs, rpp, device, label):
+    """FillTables of every chunk of a PairedGraphSW over the case, built
+    by the table kernel as the scorer builds them (_staged_dispatch)."""
+    from paragraph_tpu_torch.ops.multi_sw import PairedGraphSW
 
     sw = PairedGraphSW(graphs, device=device)
-    out = []
-    for a, idxs in zip(sw.chunk_arrays, sw.chunk_pairs):
-        t = build_pair_tables(a, [rpp[p] for p in idxs], TILE_LANES)
-        out.append((dispatch_tables(t, *graph_tensors(a, sw.device),
-                                    sw.device), t))
-    return out
+    return [_staged_dispatch(a, [rpp[p] for p in idxs], sw.device,
+                             f"{label}[{ci}]")
+            for ci, (a, idxs) in enumerate(zip(sw.chunk_arrays,
+                                               sw.chunk_pairs))]
 
 
 def _compare(kernel, plain, tables, label, **scoring):
@@ -570,7 +640,7 @@ def phase_kernel_cases(card: str, clock_hz: float):
     max_err = 0
     for name, graphs, rpp in kernel_cases(seed=20261016):
         for ci, (tables, t) in enumerate(
-                _case_tables(graphs, rpp, "cuda")):
+                _case_tables(graphs, rpp, "cuda", name)):
             for idx_dtype in (torch.int16, torch.int32):
                 tt = dataclasses.replace(
                     tables, col_idx=tables.col_idx.to(idx_dtype))
@@ -582,7 +652,7 @@ def phase_kernel_cases(card: str, clock_hz: float):
                 f"M={t['m']}, col_idx {t['col_idx'].dtype}: kernel == "
                 f"plain (int16 and int32 col_idx)")
     for ci, (tables, t) in enumerate(_case_tables(*long_read_case(7),
-                                                  "cuda")):
+                                                  "cuda", "long reads")):
         if t["m"] < 512:
             raise AssertionError(f"long-read case has M={t['m']} < 512")
         max_err = max(max_err, _compare(paired_fill, paired_fill_reference,
@@ -590,7 +660,8 @@ def phase_kernel_cases(card: str, clock_hz: float):
         say(f"[kernel] case long reads chunk {ci}: "
             f"{tables.col_idx.shape[0]} lanes, M={t['m']}: kernel == plain")
     for ci, (tables, t) in enumerate(_case_tables(
-            *very_long_read_case(7, short_graphs=True), "cuda")):
+            *very_long_read_case(7, short_graphs=True), "cuda",
+            "very long reads")):
         if t["m"] != VERY_LONG_READS[1]:
             raise AssertionError(f"very-long-read case has M={t['m']}")
         max_err = max(max_err, _compare(paired_fill, paired_fill_reference,
@@ -607,14 +678,120 @@ def phase_kernel_cases(card: str, clock_hz: float):
     return max_err
 
 
+def _realign_like_case(seed: int):
+    """TABLE_EVENTS deletion graphs (flanks of 250 bases around an allele
+    of 50-200) with TABLE_READS reads of TABLE_READ_LEN bases each, cut
+    from the allele's path, every other read in lower case: one dispatch
+    of the wgs30x.realign cell's shape."""
+    from paragraph_tpu_torch.graph.model import SequenceGraph
+
+    rng = random.Random(seed)
+
+    def seq(n):
+        return "".join(rng.choice("ACGT") for _ in range(n))
+
+    graphs, rpp = [], []
+    for _ in range(TABLE_EVENTS):
+        left, alt, right = seq(250), seq(rng.randint(50, 200)), seq(250)
+        g = SequenceGraph(["l", "a", "r"], [left, alt, right])
+        g.add_edge(0, 1)
+        g.add_edge(1, 2)
+        g.add_edge(0, 2)
+        graphs.append(g)
+        path = left + alt + right
+        reads = [path[x:x + TABLE_READ_LEN] for x in (
+            rng.randrange(len(path) - TABLE_READ_LEN)
+            for _ in range(TABLE_READS))]
+        rpp.append([r.lower() if i % 2 else r for i, r in enumerate(reads)])
+    return graphs, rpp
+
+
+def phase_table_kernel(card: str):
+    """The read-table kernel on a realign-like dispatch: its tensors ==
+    the host tables and the plain tables (tolerance 0), K1 on them ==
+    the plain fill, the kernel timed alone (CUDA events; L2 flushed
+    before each of 50 launches, median, and 200 back to back, mean)
+    against its bytes at the memory rate, the plain tables once. Returns
+    the kernel's entry of the kernels line (launches filled in by phase
+    4)."""
+    import statistics
+
+    import torch
+
+    from paragraph_tpu_torch.ops import multi_sw as msw
+
+    graphs, rpp = _realign_like_case(SEED)
+    sw = msw.PairedGraphSW(graphs, device="cuda")
+    if len(sw.chunk_arrays) != 1:
+        raise AssertionError(f"realign-like case: {len(sw.chunk_arrays)} "
+                             f"chunks, want 1")
+    a, pairs = sw.chunk_arrays[0], [rpp[p] for p in sw.chunk_pairs[0]]
+    tables, t = _staged_dispatch(a, pairs, sw.device,
+                                 "realign-like dispatch")
+    err = _compare(msw.paired_fill, msw.paired_fill_reference, tables,
+                   "K1 on the table kernel's tables")
+    s = msw.stage_pair_tables(a, pairs, msw.TILE_LANES)
+    staging = msw.staging_tensor(s, pin=True)
+    ws, v = msw._workspace(s, sw.device)
+    ws[:staging.numel()].copy_(staging)
+    for _ in range(10):
+        msw._launch_tables(v, s, sw.device)
+    flush = torch.empty(64 << 20, dtype=torch.uint8, device=sw.device)
+    cold = []
+    for _ in range(50):
+        flush.zero_()
+        start = torch.cuda.Event(enable_timing=True)
+        stop = torch.cuda.Event(enable_timing=True)
+        start.record()
+        msw._launch_tables(v, s, sw.device)
+        stop.record()
+        torch.cuda.synchronize()
+        cold.append(start.elapsed_time(stop))
+    reps = 200
+    start.record()
+    for _ in range(reps):
+        msw._launch_tables(v, s, sw.device)
+    stop.record()
+    torch.cuda.synchronize()
+    warm_ms = start.elapsed_time(stop) / reps
+    kernel_ms = statistics.median(cold)
+    plain_staging = msw.staging_tensor(s, pin=False)
+    msw.pair_tables_reference(plain_staging, s, *msw.graph_tensors(
+        a, sw.device))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    msw.pair_tables_reference(plain_staging, s, *msw.graph_tensors(
+        a, sw.device))
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    B = s.T * s.TB
+    # in: the staged ints and bytes; out: codes, vlens, col_idx, flip,
+    # comp
+    n_bytes = staging.numel() + s.m * s.Bb + 4 * s.Bb \
+        + B * (tables.col_idx.element_size() + 2)
+    bound_ms = n_bytes / HBM_BYTES_PER_S * 1e3
+    say(f"[tables] realign-like dispatch: T={s.T} B={B} lanes Bb={s.Bb} "
+        f"reads M={s.m}, {staging.numel()} staged bytes: table kernel == "
+        f"host tables == plain tables (tolerance 0), K1 on them == plain; "
+        f"kernel {kernel_ms:.4f} ms alone (L2 flushed, median of 50), "
+        f"{warm_ms:.4f} ms back to back; bound {bound_ms:.6f} ms (bytes: "
+        f"{n_bytes} in and out at {HBM_BYTES_PER_S / 1e12:.2f} TB/s, "
+        f"{100 * bound_ms / kernel_ms:.1f}% of it); plain {plain_ms:.2f} "
+        f"ms [{card}]")
+    return {"name": "pair_tables", "route": "cuda",
+            "source": TABLES_SOURCE, "replaces": TABLES_REPLACES,
+            "launches": None, "max_abs_err": err, "ms": kernel_ms,
+            "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": "bytes",
+            "library_ms": None}
+
+
 def _first_round_tables(wl: str):
     """FillTables of the first dispatch of the main path's first round,
-    built as the pipelined orchestrator builds it."""
+    staged from the reads as the pipelined orchestrator ships them and
+    built by the table kernel (_staged_dispatch)."""
     from paragraph_tpu_torch.genotyping.sample_info import load_manifest
     from paragraph_tpu_torch.graph.model import SequenceGraph
-    from paragraph_tpu_torch.ops.multi_sw import (
-        TILE_LANES, PairedGraphSW, build_pair_tables, dispatch_tables,
-        graph_tensors)
+    from paragraph_tpu_torch.ops.multi_sw import PairedGraphSW
     from paragraph_tpu_torch.pipeline.multigrmpy import (
         load_graph_description)
     from paragraph_tpu_torch.pipeline.parallel_grmpy import (
@@ -630,10 +807,9 @@ def _first_round_tables(wl: str):
     batches = [_extract_event(gi, d, opts.reference, specs, 10000)[
         manifest[0].sample_name] for gi, d in enumerate(descs)]
     sw = PairedGraphSW(graphs, device="cuda")
-    a = sw.chunk_arrays[0]
-    t = build_pair_tables(a, [batches[p] for p in sw.chunk_pairs[0]],
-                          TILE_LANES)
-    return dispatch_tables(t, *graph_tensors(a, sw.device), sw.device), t
+    return _staged_dispatch(sw.chunk_arrays[0],
+                            [batches[p] for p in sw.chunk_pairs[0]],
+                            sw.device, "full-size dispatch")
 
 
 def phase_full_dispatch(card: str, wl: str, clock_hz: float):
@@ -714,7 +890,8 @@ def phase_main_path(card: str, wl: str, events):
     import torch
 
     from paragraph_tpu_torch.align.native import native_available
-    from paragraph_tpu_torch.ops.multi_sw import paired_fill
+    from paragraph_tpu_torch.ops.multi_sw import (paired_fill,
+                                                  pair_tables_kernel)
     from paragraph_tpu_torch.pipeline.multigrmpy import run
     from paragraph_tpu_torch.tools.bench_e2e import check_truth
 
@@ -727,15 +904,23 @@ def phase_main_path(card: str, wl: str, events):
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     paired_fill.launches = 0
+    pair_tables_kernel.launches = 0
     t0 = time.perf_counter()
     out = run(_options(wl, os.path.join(wl, "out_cuda")), device="cuda",
               kernel_stats=stats)
     elapsed = time.perf_counter() - t0
     launches = paired_fill.launches
+    table_launches = pair_tables_kernel.launches
     peak = torch.cuda.max_memory_allocated()
     if launches <= 0 or stats.get("dispatches", 0) <= 0:
         raise AssertionError(f"main path launched no kernel "
                              f"(launches={launches}, stats={stats})")
+    if table_launches != stats["dispatches"] \
+            or stats.get("tables_on_card") != stats["dispatches"]:
+        raise AssertionError(
+            f"main path: table kernel launches {table_launches}, "
+            f"tables_on_card {stats.get('tables_on_card')}, want one a "
+            f"dispatch ({stats['dispatches']})")
     n_ok, misses = check_truth(out["genotypes_vcf"], out["genotypes_json"],
                                events)
     unexpected = [m for m in misses if m["reason"] == "unexpected"]
@@ -744,7 +929,9 @@ def phase_main_path(card: str, wl: str, events):
         f"misses {len(misses)} (unexpected {len(unexpected)}); "
         f"peak device memory {peak / 2**20:.1f} MiB [{card}]")
     k1_s = stats["k1_s"]
-    say(f"[main] kernel launches={launches} dispatches={stats['dispatches']}"
+    say(f"[main] kernel launches={launches} table kernel launches="
+        f"{table_launches} tables_on_card={stats['tables_on_card']} "
+        f"dispatches={stats['dispatches']}"
         f" cells={stats['cells']} k1={k1_s:.3f}s "
         f"device_wait={stats['device_wait_s']:.3f}s "
         f"tables={stats['tables_s']:.3f}s "
@@ -754,7 +941,7 @@ def phase_main_path(card: str, wl: str, events):
         f"[{card}]")
     if unexpected:
         raise AssertionError(f"unexpected misses: {unexpected[:5]}")
-    return launches, len(events) / elapsed
+    return launches, table_launches, len(events) / elapsed
 
 
 # ---------------------------------------------------------------- phase 5
@@ -1557,7 +1744,8 @@ def _sharded_scorer(card: str, wl: str):
     import numpy as np
     import torch
 
-    from paragraph_tpu_torch.ops.multi_sw import PairedGraphSW, paired_fill
+    from paragraph_tpu_torch.ops.multi_sw import (
+        PairedGraphSW, paired_fill, pair_tables_kernel)
     from paragraph_tpu_torch.parallel.distributed import ShardedPairedSW
 
     t0 = time.perf_counter()
@@ -1571,10 +1759,15 @@ def _sharded_scorer(card: str, wl: str):
     for name in ("single", "sharded", "sharded", "single"):
         torch.cuda.synchronize()
         paired_fill.launches = 0
+        pair_tables_kernel.launches = 0
         t0 = time.perf_counter()
         outs[name] = scorers[name].score_pairs(batches)
         secs[name].append(time.perf_counter() - t0)
         launches[name] = paired_fill.launches
+        if pair_tables_kernel.launches != launches[name]:
+            raise AssertionError(
+                f"{name}: table kernel launches "
+                f"{pair_tables_kernel.launches}, K1 {launches[name]}")
     for k, (got, want) in enumerate(zip(outs["sharded"], outs["single"])):
         for side in range(2):
             for x, y in zip(got[side], want[side]):
@@ -1589,7 +1782,8 @@ def _sharded_scorer(card: str, wl: str):
                              f"{len(sharded.slot_pairs)}, rounds {n_rounds}")
     say(f"[sharded] (a) {len(batches)} pairs: ShardedPairedSW on "
         f"{MESH_SHARDS} shards of cuda:0 == PairedGraphSW (5-tuples "
-        f"identical, tolerance 0); K1 launches {launches['sharded']} = "
+        f"identical, tolerance 0); K1 and table kernel launches "
+        f"{launches['sharded']} = "
         f"{n_rounds} rounds x {MESH_SHARDS} shards - {fillers} empty "
         f"shards of the last round (one launch per slot), against "
         f"{launches['single']} unsharded; wall s sharded "
@@ -1891,6 +2085,7 @@ def main() -> int:
         phase_build()
         clock_hz = sm_clock_hz()
         say(f"[device] max SM clock {clock_hz / 1e6:.0f} MHz")
+        tables_entry = phase_table_kernel(card)
         err = phase_kernel_cases(card, clock_hz)
         events = ensure_workload(WORKLOAD)
         pop_events = finish_pop_workload(pop_proc, POP_WORKLOAD)
@@ -1902,7 +2097,8 @@ def main() -> int:
                 proc.wait()
     err_full, kernel_ms, plain_ms, k1_tables = phase_full_dispatch(
         card, WORKLOAD, clock_hz)
-    launches, main_sv_s = phase_main_path(card, WORKLOAD, events)
+    launches, tables_entry["launches"], main_sv_s = phase_main_path(
+        card, WORKLOAD, events)
     phase_cuda_equals_cpu(card, WORKLOAD, events)
     opts, descs = _first_events_graphs(WORKLOAD, events, PER_EVENT_EVENTS)
     g_err, g_ms, g_plain_ms, k3_tables = phase_graph_kernel(card, opts,
@@ -1938,7 +2134,7 @@ def main() -> int:
         {"name": "multi_sw", "route": "cuda", "source": KERNEL_SOURCE,
          "replaces": MULTI_REPLACES, "launches": m_launches,
          "max_abs_err": m_err, "ms": m_ms, "plain_ms": m_plain_ms,
-         **bound(k2_tables)}, *k4]}))
+         **bound(k2_tables)}, tables_entry, *k4]}))
     say(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -107,6 +107,9 @@ def load() -> ctypes.CDLL:
             [vp] * 9 + [i] + [vp] * 4 + [i] * 13 + [vp])
         lib.multi_sw_launch.restype = i
         lib.multi_sw_launch.argtypes = [vp] * 10 + [i] * 12 + [vp]
+        lib.pair_tables_launch.restype = i
+        lib.pair_tables_launch.argtypes = (
+            [vp] * 10 + [i] + [vp] * 2 + [i] * 4 + [vp])
         lib.graph_sw_launch.restype = i
         lib.graph_sw_launch.argtypes = [vp] * 10 + [i] * 11 + [vp]
         lib.sw_warp_rows.restype = i

@@ -15,6 +15,13 @@ over the same tensors:
 already expanded on the host (the JAX package's ``multi_pallas_fill``),
 behind ``MultiGraphSW``.
 
+The paired scorers do not build the per-dispatch read tables on the
+host: ``stage_pair_tables`` stages each read's bytes once with a few
+numbers per tile, and ``pair_tables`` builds the same tensors from them
+on the scorer's device: on a card by ``pair_tables_kernel``
+(``ops/csrc/pair_tables.cu``) from one pinned copy, elsewhere by its
+plain version ``pair_tables_reference``.
+
 Each lane is one read orientation scored against one event's column
 range; a tile of TB lanes shares the event. Output per lane, [4, B]
 int32: score, global end column (-1 when the score is 0), end read row
@@ -22,6 +29,7 @@ and the multi-node flag (alignsEndAtMultNodes).
 """
 from __future__ import annotations
 
+import math
 from dataclasses import dataclass
 from typing import List, Sequence, Tuple
 
@@ -240,6 +248,102 @@ def build_pair_tables(a: MultiGraphArrays, reads_per_pair, tb: int):
     }
 
 
+#: the per-tile int32 rows of a staged dispatch (``PairStage.ints``)
+STAGE_TILE_ROWS = ("tile_col_start", "tile_col_len", "tile_event",
+                   "tile_lane0", "tile_n", "tile_base")
+
+
+@dataclass(frozen=True)
+class PairStage:
+    """One paired dispatch's read tables as the host ships them to the
+    card (``stage_pair_tables``): every read's bytes once, and the
+    numbers from which ``pair_tables_kernel`` builds the rest.
+
+    ``ints`` int32[6 T + 2 Bb]: the ``STAGE_TILE_ROWS``, each [T] (the
+    tiles of ``build_pair_tables``, then per tile its block's first
+    lane, the pair's read count and the pair's first read), then per
+    read its byte offset in ``blob`` and its length. Pair j's block
+    against the forward graph is event 2 j, its block against the
+    reversed graph event 2 j + 1. ``blob`` holds every read's bases,
+    pair after pair, in the case they came in. A dispatch without reads
+    ships the one pad tile (column count 0) over one read "A", as
+    ``build_pair_tables`` builds it. ``m``, ``l_ev`` and ``layout`` are
+    ``build_pair_tables``' own; the dispatch has B = T x TB lanes.
+    """
+
+    ints: np.ndarray
+    blob: bytes
+    T: int
+    TB: int
+    Bb: int
+    m: int
+    l_ev: int
+    layout: list
+
+    @property
+    def tile_col_len(self) -> np.ndarray:
+        return self.ints[self.T:2 * self.T]
+
+
+def stage_pair_tables(a: MultiGraphArrays, reads_per_pair, tb: int
+                      ) -> PairStage:
+    """``build_pair_tables`` before the read encode and the lane
+    expansion, from the same pairs (read-string lists or (blob, lens)
+    tuples): the reads' bytes joined as they are, and the per-pair,
+    per-block and per-tile numbers by numpy over pairs and blocks.
+    Refuses what ``build_pair_tables`` refuses."""
+    counts = np.fromiter(map(pair_count, reads_per_pair), np.int64,
+                         count=len(reads_per_pair))
+    pairs = np.flatnonzero(counts)
+    blobs, lens_parts = [], []
+    for j in pairs:
+        reads = reads_per_pair[j]
+        if isinstance(reads, tuple):
+            blobs.append(reads[0])
+            lens_parts.append(np.asarray(reads[1], np.int32))
+        else:
+            blobs.append("".join(reads).encode())
+            lens_parts.append(np.fromiter(map(len, reads), np.int32,
+                                          count=len(reads)))
+    layout = [([0, 0, 0, 0], 0) for _ in range(len(reads_per_pair))]
+    if len(pairs):
+        n = counts[pairs]
+        lanes = np.repeat(-(-2 * n // tb) * tb, 2)
+        lane0 = np.cumsum(lanes) - lanes
+        reps = lanes // tb
+        event = np.repeat(2 * pairs[:, None] + np.arange(2), reps)
+        tiles = [np.asarray(a.col_start)[event], np.asarray(a.col_len)[event],
+                 event, np.repeat(lane0, reps), np.repeat(np.repeat(n, 2),
+                                                          reps),
+                 np.repeat(np.repeat(np.cumsum(n) - n, 2), reps)]
+        offsets = np.stack([lane0[0::2], lane0[0::2] + n, lane0[1::2],
+                            lane0[1::2] + n], 1).tolist()
+        for j, off, n_j in zip(pairs.tolist(), offsets, n.tolist()):
+            layout[j] = (off, n_j)
+        lens = np.concatenate(lens_parts)
+        blob = b"".join(blobs)
+    else:
+        tiles = [np.zeros(1, np.int64)] * len(STAGE_TILE_ROWS)
+        lens = np.ones(1, np.int32)
+        blob = b"A"
+    starts = np.cumsum(lens, dtype=np.int64) - lens
+    if int(lens.sum(dtype=np.int64)) != len(blob):
+        raise ValueError(f"{len(blob)} read bytes for lengths summing to "
+                         f"{int(lens.sum(dtype=np.int64))}")
+    if len(blob) >= 1 << 31:
+        raise ValueError(f"{len(blob)} read bytes in one dispatch")
+    m = _bucket(max(1, int(lens.max())), 32)
+    l_ev = _bucket(max(a.col_len), 256)
+    if pack_bits(l_ev, m, 1) is None:
+        raise ValueError(
+            f"scores overflow the packed end-cell word (event columns "
+            f"{l_ev}, read rows {m})")
+    return PairStage(
+        ints=np.concatenate(tiles + [starts, lens]).astype(np.int32),
+        blob=blob, T=len(tiles[0]), TB=tb, Bb=len(lens), m=m, l_ev=l_ev,
+        layout=layout)
+
+
 def slice_pair_outputs(a: MultiGraphArrays, vals: np.ndarray, layout,
                        idxs, results) -> None:
     """Map one fetched [4, B] output block back to per-pair (f_out, r_out)
@@ -338,6 +442,161 @@ def tables_from_numpy(pair_tables: dict, multi_arrays, device
     device = resolve_device(device)
     return dispatch_tables(pair_tables, *graph_tensors(multi_arrays, device),
                            device)
+
+
+def staging_tensor(s: PairStage, pin: bool):
+    """The staging bytes of `s` in one uint8 tensor: its ints, then its
+    blob. Pinned when `pin`, from the caching host allocator, which hands
+    a block out again only once the copy recorded on it has ended."""
+    import torch
+
+    k = 4 * len(s.ints)
+    out = torch.empty(k + len(s.blob), dtype=torch.uint8, pin_memory=pin)
+    buf = out.numpy()
+    buf[:k] = s.ints.view(np.uint8)
+    buf[k:] = np.frombuffer(s.blob, np.uint8)
+    return out
+
+
+def _workspace(s: PairStage, device):
+    """One uint8 workspace on `device` for a staged dispatch, and its
+    sections by name as views: the staging bytes as the host packs them
+    (``STAGE_TILE_ROWS``, ``read_start``, ``base_lens``, ``blob``), then,
+    each at a 16-byte boundary, the tables built from them
+    (``base_codes_t``, ``base_vlens``, ``col_idx``, ``flip``, ``comp``)."""
+    import torch
+
+    i32, i8 = torch.int32, torch.int8
+    B = s.T * s.TB
+    staged = [(name, i32, (s.T,)) for name in STAGE_TILE_ROWS] + [
+        ("read_start", i32, (s.Bb,)), ("base_lens", i32, (1, s.Bb)),
+        ("blob", torch.uint8, (len(s.blob),))]
+    built = [("base_codes_t", i8, (s.m, s.Bb)),
+             ("base_vlens", i32, (1, s.Bb)),
+             ("col_idx", torch.int16 if s.Bb <= 32767 else i32, (B,)),
+             ("flip", i8, (1, B)), ("comp", i8, (1, B))]
+    spans, end = [], 0
+    for i, (name, dtype, shape) in enumerate(staged + built):
+        if i >= len(staged):
+            end = _bucket(end, 16)
+        spans.append((name, dtype, shape, end))
+        end += math.prod(shape) * dtype.itemsize
+    ws = torch.empty(_bucket(end, 16), dtype=torch.uint8, device=device)
+    # one dtype view of the whole workspace each, then one as_strided a
+    # section: the fewest tensor ops a dispatch pays on the host
+    typed = {dtype: ws.view(dtype) for _, dtype, _, _ in spans}
+    return ws, {name: typed[dtype].as_strided(
+        shape, (1,) if len(shape) == 1 else (shape[1], 1),
+        at // dtype.itemsize)
+        for name, dtype, shape, at in spans}
+
+
+def _staged_tables(v: dict, s: PairStage, packed_cols, pred_tables
+                   ) -> FillTables:
+    return FillTables(
+        packed_cols=packed_cols, pred_tables=pred_tables,
+        tile_col_start=v["tile_col_start"], tile_col_len=v["tile_col_len"],
+        tile_event=v["tile_event"], base_codes_t=v["base_codes_t"],
+        base_lens=v["base_lens"], base_vlens=v["base_vlens"],
+        col_idx=v["col_idx"], flip=v["flip"], comp=v["comp"], l_ev=s.l_ev)
+
+
+def _launch_tables(v: dict, s: PairStage, dev) -> None:
+    """Queue the table kernel on `dev`'s current stream over the views
+    `v` of a workspace that holds `s`'s staging bytes, with `dev` the
+    current device; raises if the launch is refused."""
+    import torch
+
+    lib = _build.load()
+    err = lib.pair_tables_launch(
+        *(v[name].data_ptr() for name in (
+            "tile_event", "tile_lane0", "tile_n", "tile_base", "read_start",
+            "base_lens", "blob", "base_codes_t", "base_vlens", "col_idx")),
+        v["col_idx"].element_size(), v["flip"].data_ptr(),
+        v["comp"].data_ptr(), s.T, s.TB, s.Bb, s.m,
+        torch.cuda.current_stream(dev).cuda_stream)
+    if err:
+        raise RuntimeError(
+            f"pair_tables_launch failed: {_build.error_string(lib, err)}")
+
+
+def pair_tables_kernel(staging, s: PairStage, packed_cols, pred_tables
+                       ) -> FillTables:
+    """FillTables of a staged dispatch, built on packed_cols' card: one
+    copy of `staging` (pinned) into a device workspace, then the kernel of
+    ops/csrc/pair_tables.cu, which writes the read tables into the rest
+    of the workspace, both queued on the card's current stream. The
+    tensors are views of the workspace, equal in dtype, shape and value to
+    ``dispatch_tables(build_pair_tables(...))``. Raises if the launch is
+    refused; ``pair_tables_kernel.launches`` counts launches."""
+    import torch
+
+    dev = packed_cols.device
+    if dev.type != "cuda":
+        raise ValueError(f"pair_tables_kernel runs on cuda, not {dev}")
+    ws, v = _workspace(s, dev)
+    with torch.cuda.device(dev):
+        ws[:staging.numel()].copy_(staging, non_blocking=True)
+        _launch_tables(v, s, dev)
+    pair_tables_kernel.launches += 1
+    return _staged_tables(v, s, packed_cols, pred_tables)
+
+
+pair_tables_kernel.launches = 0
+
+
+def pair_tables_reference(staging, s: PairStage, packed_cols, pred_tables
+                          ) -> FillTables:
+    """pair_tables_kernel in plain PyTorch ops, on packed_cols' device:
+    the kernel's oracle, and the statement of the staging format that
+    the CPU tests hold to ``build_pair_tables``.
+
+    A read's codes are the ``_NT`` classes of its bytes with lower case
+    folded in (0-3 ACGT, 4 anything else), pad class 5 from its length
+    on; vlens round lengths up to 16. Lane r of a block of pair j with n
+    reads from read b0: r < n reads b0 + r as it is, n <= r < 2 n reads
+    b0 + r - n complemented, flipped in the forward graph's block and
+    the reversed graph's flipped where r < n; the pad lanes past 2 n read
+    b0 with neither."""
+    import torch
+
+    dev = packed_cols.device
+    ws, v = _workspace(s, dev)
+    ws[:staging.numel()].copy_(staging)
+    lens = v["base_lens"][0].long()
+    nt = torch.full((256,), 4, dtype=torch.int8, device=dev)
+    for code, base in enumerate(b"ACGT"):
+        nt[base] = nt[base | 0x20] = code
+    jj = torch.arange(s.m, device=dev)[:, None]
+    inside = jj < lens
+    # one byte past the blob stands in for the pad rows' index
+    blob = torch.cat([v["blob"], v["blob"].new_zeros(1)])
+    byte = blob[torch.where(inside, v["read_start"].long() + jj,
+                            len(s.blob))]
+    v["base_codes_t"].copy_(torch.where(inside, nt[byte.long()], 5))
+    v["base_vlens"].copy_((v["base_lens"] + 15) // 16 * 16)
+    tile = torch.arange(s.T * s.TB, device=dev) // s.TB
+    n = v["tile_n"][tile]
+    r = torch.arange(s.T * s.TB, device=dev) - v["tile_lane0"][tile]
+    fwd = r < n
+    back = ~fwd & (r < 2 * n)
+    v["col_idx"].copy_(v["tile_base"][tile] + torch.where(
+        fwd, r, torch.where(back, r - n, 0)))
+    rev_graph = (v["tile_event"][tile] & 1) != 0
+    v["flip"][0].copy_(torch.where(rev_graph, fwd, back))
+    v["comp"][0].copy_(back)
+    return _staged_tables(v, s, packed_cols, pred_tables)
+
+
+def pair_tables(s: PairStage, packed_cols, pred_tables) -> FillTables:
+    """FillTables of a staged dispatch on packed_cols' device: on a card
+    the table kernel from one pinned staging tensor, elsewhere its plain
+    version."""
+    if packed_cols.device.type == "cuda":
+        return pair_tables_kernel(staging_tensor(s, pin=True), s,
+                                  packed_cols, pred_tables)
+    return pair_tables_reference(staging_tensor(s, pin=False), s,
+                                 packed_cols, pred_tables)
 
 
 def _pack_split(l_ev: int, m: int, match: int):
@@ -742,10 +1001,16 @@ def scorer_stats() -> dict:
     so ``device_wait_s`` is the wait for the dispatch's own copy-out,
     and ``fetch_ready`` counts the dispatches whose copy-out had ended
     when the fetch reached them (every dispatch off a card; 0 for the
-    single-graph scorer, whose fetch is its own copy)."""
+    single-graph scorer, whose fetch is its own copy). For the paired
+    scorers ``tables_s`` is the staging of the read bytes
+    (``stage_pair_tables``) and ``put_s`` their one staging tensor and
+    the read tables built from it (``pair_tables``: on a card one pinned
+    copy and the table kernel's launch); ``tables_on_card`` counts the
+    dispatches whose tables the table kernel built (0 off a card and for
+    the single-graph scorer)."""
     return {"dispatches": 0, "cells": 0, "tables_s": 0.0, "put_s": 0.0,
             "call_s": 0.0, "device_wait_s": 0.0, "slice_s": 0.0,
-            "k1_s": 0.0, "fetch_ready": 0}
+            "k1_s": 0.0, "fetch_ready": 0, "tables_on_card": 0}
 
 
 def queue_copy_out(out):
@@ -849,23 +1114,26 @@ class PairedGraphSW:
             self._chunk_dev.append(graph_tensors(a, device))
 
     def _dispatch(self, chunk_i: int, reads_per_pair):
+        """Launch one chunk's fill: the host stages the read bytes, and
+        ``pair_tables`` builds the read tables from them on the chunk's
+        device, on a card with the table kernel on the stream ahead of
+        K1."""
         serial = next(dispatch_serials)
         with span("scorer.tables", self.stats, "tables_s", serial):
-            t = build_pair_tables(self.chunk_arrays[chunk_i],
-                                  reads_per_pair, TILE_LANES)
+            s = stage_pair_tables(self.chunk_arrays[chunk_i], reads_per_pair,
+                                  TILE_LANES)
         with span("scorer.put", self.stats, "put_s", serial):
             packed_cols, pred_tables = self._chunk_dev[chunk_i]
-            tables = dispatch_tables(t, packed_cols, pred_tables,
-                                     packed_cols.device)
+            tables = pair_tables(s, packed_cols, pred_tables)
         events = timing_events(packed_cols.device)
         with span("scorer.launch", self.stats, "call_s", serial):
             out = paired_fill(tables, events=events)
             host, done = queue_copy_out(out)
         self.stats["dispatches"] += 1
+        self.stats["tables_on_card"] += packed_cols.device.type == "cuda"
         self.stats["cells"] += int(
-            t["tile_col_len"].astype(np.int64).sum()) * TILE_LANES \
-            * t["m"]
-        return out, host, done, t["layout"], serial, events
+            s.tile_col_len.astype(np.int64).sum()) * TILE_LANES * s.m
+        return out, host, done, s.layout, serial, events
 
     def score_pairs_device(self, reads_per_pair):
         """Launch every chunk, each with its copy-out queued behind it,

@@ -1,7 +1,8 @@
 """The CUDA graph-SW kernels on the card, against their plain versions:
 the paired multi-event fill (K1, also sharded over a mesh of one card),
-the single-graph fill (K3), the multi-event fill on expanded reads (K2)
-and the ablation variants of its column loop (K4).
+the read-table kernel that builds its inputs from staged bytes, the
+single-graph fill (K3), the multi-event fill on expanded reads (K2) and
+the ablation variants of its column loop (K4).
 
 Every test here needs an NVIDIA card (marker ``cuda``) and skips without
 one. The file imports no jax, so on a machine without it the tests run
@@ -94,6 +95,112 @@ def test_kernel_matches_plain_fill(name, col_idx_dtype, cuda_device):
     assert torch.equal(got, want)
     cpu = msw.paired_fill_reference(msw.tables_from_numpy(t, a, "cpu"))
     assert torch.equal(got.cpu(), cpu)
+
+
+TABLE_FIELDS = ("tile_col_start", "tile_col_len", "tile_event",
+                "base_codes_t", "base_lens", "base_vlens", "col_idx", "flip",
+                "comp")
+
+
+def _table_case(name):
+    """A case of CASES, or one of the table kernel's own: lower-case
+    bases, reads past 832 bases, a dispatch without reads."""
+    if name in CASES:
+        return _case(**CASES[name])
+    rng = random.Random(29)
+    graphs, rpp = _case(seed=29, n_frac=0.1)
+    if name == "lower_case":
+        return graphs, [[r.lower() if i % 2 else r for i, r in enumerate(rs)]
+                        for rs in rpp]
+    if name == "no_reads":
+        return graphs, [[] for _ in rpp]
+    rpp[0] = rpp[0] + ["".join(rng.choice("ACGTN") for _ in range(
+        rng.randint(833, 1000))) for _ in range(3)]
+    return graphs, rpp
+
+
+def _forms(rpp, form):
+    """Read-string lists, (upper-case blob, lens) tuples, or every other
+    pair a tuple."""
+    if form == "lists":
+        return rpp
+    return [msw.pair_norm(r) if form == "blobs" or j % 2 else r
+            for j, r in enumerate(rpp)]
+
+
+def _assert_tables_equal(got, want):
+    for field in TABLE_FIELDS:
+        x, y = getattr(got, field), getattr(want, field)
+        assert x.device == y.device, field
+        assert x.dtype == y.dtype and x.shape == y.shape, (
+            field, x.dtype, y.dtype, x.shape, y.shape)
+        assert torch.equal(x, y), field
+    assert got.l_ev == want.l_ev
+
+
+def _kernel_tables(a, rpp, device):
+    """(the table kernel's FillTables, the host tables on the card, the
+    plain version's on the card) of one dispatch."""
+    want = msw.tables_from_numpy(
+        msw.build_pair_tables(a, rpp, msw.TILE_LANES), a, device)
+    s = msw.stage_pair_tables(a, rpp, msw.TILE_LANES)
+    before = msw.pair_tables_kernel.launches
+    got = msw.pair_tables_kernel(msw.staging_tensor(s, pin=True), s,
+                                 want.packed_cols, want.pred_tables)
+    torch.cuda.synchronize()
+    assert msw.pair_tables_kernel.launches == before + 1
+    plain = msw.pair_tables_reference(msw.staging_tensor(s, pin=False), s,
+                                      want.packed_cols, want.pred_tables)
+    return got, want, plain
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("form", ["lists", "blobs", "mixed"])
+@pytest.mark.parametrize("name", sorted(CASES) + [
+    "long_reads", "lower_case", "no_reads"])
+def test_table_kernel_matches_host_tables(name, form, cuda_device):
+    """The table kernel's tensors == build_pair_tables + dispatch_tables
+    on the card == its plain version on the card; K1 on them gives the
+    same outputs."""
+    graphs, rpp = _table_case(name)
+    a, _ = _host_tables(graphs, [[] for _ in graphs])
+    got, want, plain = _kernel_tables(a, _forms(rpp, form), cuda_device)
+    _assert_tables_equal(got, want)
+    _assert_tables_equal(plain, want)
+    assert torch.equal(msw.paired_fill(got), msw.paired_fill(want))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_reads,dtype", [(32767, torch.int16),
+                                           (32768, torch.int32)])
+def test_table_kernel_col_idx_int16_int32_switch(n_reads, dtype,
+                                                 cuda_device):
+    graphs, _ = _case(seed=30, n_pairs=2)
+    rng = np.random.RandomState(30)
+    lens = rng.randint(6, 12, size=n_reads).astype(np.int32)
+    blob = rng.choice(list(b"ACGTN"), size=int(lens.sum())).astype(
+        np.uint8).tobytes()
+    half = int(lens[:n_reads // 2].sum())
+    rpp = [(blob[:half], lens[:n_reads // 2]), (blob[half:],
+                                                lens[n_reads // 2:])]
+    a, _ = _host_tables(graphs, [[] for _ in graphs])
+    got, want, plain = _kernel_tables(a, rpp, cuda_device)
+    assert got.col_idx.dtype == dtype
+    _assert_tables_equal(got, want)
+    _assert_tables_equal(plain, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["paired", "sharded"])
+def test_tables_on_card_counts_every_dispatch(kind, cuda_device):
+    graphs, rpp = _case(seed=27, n_pairs=5, n_reads=(1, 20))
+    sw = _scorers(kind, [(graphs, rpp)], cuda_device)[0]
+    before = msw.pair_tables_kernel.launches
+    sw.score_pairs(rpp)
+    sw.finalize_pairs(sw.score_pairs_device(rpp[::-1]))
+    assert sw.stats["dispatches"] > 0
+    assert sw.stats["tables_on_card"] == sw.stats["dispatches"] \
+        == msw.pair_tables_kernel.launches - before
 
 
 @pytest.mark.cuda

@@ -238,7 +238,7 @@ def test_stats_carry_the_orchestrator_keys():
     rep = sw.engine_report()
     assert set(rep) == {"dispatches", "cells", "device_wait_s", "tables_s",
                         "put_s", "call_s", "slice_s", "k1_s", "fetch_ready",
-                        "cells_per_k1_s"}
+                        "tables_on_card", "cells_per_k1_s"}
     # no card: no kernel seconds, so no throughput over them
     assert rep["k1_s"] == 0.0 and rep["cells_per_k1_s"] == 0.0
     assert rep["dispatches"] == 1

@@ -184,7 +184,7 @@ def test_stats_carry_the_scorer_keys():
     sw.finalize(hr)
     assert set(sw.stats) == set(msw.scorer_stats()) == {
         "dispatches", "cells", "device_wait_s", "tables_s", "put_s",
-        "call_s", "slice_s", "k1_s", "fetch_ready"}
+        "call_s", "slice_s", "k1_s", "fetch_ready", "tables_on_card"}
     assert sw.stats["dispatches"] == 2
     # every host step timed; no card, so no kernel seconds
     assert min(sw.stats[k] for k in ("tables_s", "put_s", "call_s",

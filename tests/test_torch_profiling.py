@@ -12,6 +12,8 @@
 - off a card every paired fetch finds its output ready (``fetch_ready``),
   and rounds finalised one behind the next dispatch, as the benchmark's
   realign loop and the pipeline run them, give ``score_pairs``' outputs;
+- off a card no dispatch builds its read tables on a card
+  (``tables_on_card`` 0);
 - ``timing_events`` and ``kernel_seconds`` off a card;
 - ``pipeline_stage`` adds into ``stage_s`` under a ``pipeline.<key>``
   span.
@@ -33,7 +35,8 @@ CPU = torch.device("cpu")
 SCORER_SPANS = ["scorer.tables", "scorer.put", "scorer.launch",
                 "scorer.fetch", "scorer.slice"]
 SCORER_KEYS = {"dispatches", "cells", "tables_s", "put_s", "call_s",
-               "device_wait_s", "slice_s", "k1_s", "fetch_ready"}
+               "device_wait_s", "slice_s", "k1_s", "fetch_ready",
+               "tables_on_card"}
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -202,6 +205,21 @@ def test_rounds_finalised_behind_the_next_dispatch_match(kind):
                     assert x.dtype == y.dtype
                     assert (x == y).all()
     assert sw.stats["fetch_ready"] == sw.stats["dispatches"]
+
+
+def test_tables_on_card_is_zero_off_a_card():
+    graphs = [_graph(), _graph("TTGACCGTAA", "C")]
+    rpp = [_reads(), _reads()[:2]]
+    single = psw.SingleGraphSW(graphs[0], device="cpu")
+    single.score(_reads())
+    for sw in (_scorer("paired", graphs), _scorer("sharded", graphs)):
+        sw.score_pairs(rpp)
+        sw.finalize_pairs(sw.score_pairs_device(rpp[::-1]))
+        assert sw.stats["dispatches"] > 0
+        assert sw.stats["tables_on_card"] == 0
+        assert sw.engine_report()["tables_on_card"] == 0
+    assert single.stats["dispatches"] > 0
+    assert single.stats["tables_on_card"] == 0
 
 
 def test_timing_events_are_none_off_a_card():

@@ -3,11 +3,17 @@
 paragraph_tpu_torch/ops/{batched_sw,multi_sw}.py copy the numpy table
 builders out of modules that import jax; every array they build must be
 identical, dtype included (tolerance 0).
+
+On a card the paired scorers build the read tables from staged bytes
+(``stage_pair_tables``, ``pair_tables_kernel``); here the kernel's plain
+version, ``pair_tables_reference``, on the same staging bytes, is held to
+``build_pair_tables`` + ``dispatch_tables`` tensor by tensor.
 """
 import random
 
 import numpy as np
 import pytest
+import torch
 
 from paragraph_tpu.ops import batched_sw as jax_bsw
 from paragraph_tpu.ops import multi_sw as jax_msw
@@ -25,6 +31,16 @@ def _make_graph(seqs, edges):
     for f, t in edges:
         g.add_edge(f, t)
     return g
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """The test runner's workers share the machine's cores, and torch's
+    intra-op pools spin: one thread per worker while this module runs."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 def _with_n(rng, s, frac):
@@ -192,6 +208,91 @@ def test_build_pair_tables_match(name, blobs):
     assert got["col_idx"].dtype == np.int16
 
 
+FILL_FIELDS = ("tile_col_start", "tile_col_len", "tile_event",
+               "base_codes_t", "base_lens", "base_vlens", "col_idx", "flip",
+               "comp")
+
+
+def _cells(col_len, m):
+    return int(np.asarray(col_len, np.int64).sum()) * msw.TILE_LANES * m
+
+
+def _assert_staged_matches(a, rpp, jax_a=None):
+    """pair_tables_reference on the staged bytes == the host tables on
+    the CPU: every tensor in dtype, shape and value; layout, m, l_ev and
+    the dispatch's cells. Given the JAX package's arrays of the same
+    graphs, the host tables are held to its builder's too."""
+    t = msw.build_pair_tables(a, rpp, msw.TILE_LANES)
+    if jax_a is not None:
+        _assert_tables_match(t, jax_msw.build_pair_tables(jax_a, rpp, 128),
+                             _n_tiles(rpp))
+    want = msw.tables_from_numpy(t, a, "cpu")
+    s = msw.stage_pair_tables(a, rpp, msw.TILE_LANES)
+    got = msw.pair_tables_reference(msw.staging_tensor(s, pin=False), s,
+                                    want.packed_cols, want.pred_tables)
+    for field in FILL_FIELDS:
+        x, y = getattr(got, field), getattr(want, field)
+        assert x.dtype == y.dtype and x.shape == y.shape, (
+            field, x.dtype, y.dtype, x.shape, y.shape)
+        assert torch.equal(x, y), field
+    _assert_same(s.layout, t["layout"], "layout")
+    assert (s.m, s.l_ev, got.l_ev) == (t["m"], t["l_ev"], t["l_ev"])
+    assert _cells(s.tile_col_len, s.m) == _cells(t["tile_col_len"], t["m"])
+
+
+def _stage_case(name):
+    """A case of CASES, or one of the staged path's own: lower-case bases
+    (every other read), reads past 832 bases (between 833 and 1000, with
+    N bases)."""
+    if name in CASES:
+        return _case(**CASES[name])
+    if name == "lower_case":
+        graphs, rpp = _case(seed=6, n_frac=0.1)
+        return graphs, [[r.lower() if i % 2 else r for i, r in enumerate(rs)]
+                        for rs in rpp]
+    rng = random.Random(9)
+    graphs, rpp = _case(seed=9, n_pairs=3)
+    rpp[1] = rpp[1] + ["".join(rng.choice("ACGTN") for _ in range(
+        rng.randint(833, 1000))) for _ in range(3)]
+    return graphs, rpp
+
+
+def _pair_forms(rpp, form):
+    """The pairs as read-string lists, as (blob, lens) tuples, or mixed
+    (every other pair a tuple)."""
+    if form == "lists":
+        return rpp
+    return [msw.pair_norm(r) if form == "blobs" or j % 2 else r
+            for j, r in enumerate(rpp)]
+
+
+@pytest.mark.parametrize("form", ["lists", "blobs", "mixed"])
+@pytest.mark.parametrize("name", sorted(CASES) + ["long_reads",
+                                                  "lower_case"])
+def test_staged_tables_match_host_tables(name, form):
+    graphs, rpp = _stage_case(name)
+    a, jax_a = _multi(graphs)
+    _assert_staged_matches(a, _pair_forms(rpp, form), jax_a)
+
+
+def test_staged_pad_tile_of_a_dispatch_without_reads():
+    graphs, _ = _case(seed=5, n_pairs=3)
+    a, jax_a = _multi(graphs)
+    rpp = [[], (b"", np.zeros(0, np.int32)), []]
+    s = msw.stage_pair_tables(a, rpp, msw.TILE_LANES)
+    assert (s.T, s.Bb, s.m, s.blob) == (1, 1, 32, b"A")
+    assert s.layout == [([0, 0, 0, 0], 0)] * 3
+    _assert_staged_matches(a, rpp, jax_a)
+
+
+def test_staged_tables_refuse_bytes_that_disagree_with_lens():
+    graphs, _ = _case(seed=5, n_pairs=2)
+    a, _ = _multi(graphs)
+    with pytest.raises(ValueError, match="read bytes"):
+        msw.stage_pair_tables(a, [(b"ACGTA", [2, 2]), ["ACG"]],
+                              msw.TILE_LANES)
+
+
 @pytest.mark.parametrize("n_reads,dtype", [(32767, np.int16),
                                            (32768, np.int32)])
 def test_col_idx_int16_int32_switch(n_reads, dtype):
@@ -208,6 +309,7 @@ def test_col_idx_int16_int32_switch(n_reads, dtype):
     want = jax_msw.build_pair_tables(want_a, rpp, 128)
     assert got["col_idx"].dtype == want["col_idx"].dtype == dtype
     _assert_tables_match(got, want, _n_tiles(rpp))
+    _assert_staged_matches(got_a, rpp)
 
 
 @pytest.mark.parametrize("read_len,fits", [(2000, True), (4000, False)])
@@ -221,11 +323,14 @@ def test_pack_bits_overflow_refused_by_both(read_len, fits):
         _assert_tables_match(msw.build_pair_tables(got_a, rpp, 128),
                              jax_msw.build_pair_tables(want_a, rpp, 128),
                              _n_tiles(rpp))
+        _assert_staged_matches(got_a, rpp)
         return
     with pytest.raises(AssertionError):
         jax_msw.build_pair_tables(want_a, rpp, 128)
     with pytest.raises(ValueError, match="overflow"):
         msw.build_pair_tables(got_a, rpp, 128)
+    with pytest.raises(ValueError, match="overflow"):
+        msw.stage_pair_tables(got_a, rpp, 128)
 
 
 @pytest.mark.parametrize("name", sorted(CASES))
